@@ -1,0 +1,308 @@
+"""Chat: the public facade (port of ``chattts_tpu/core.py``, non-streaming).
+
+Two passes per batch of texts, as in the reference: the refine-text pass
+rewrites the normalized text through the text head, then the code pass
+samples 4-codebook audio codes and keeps the hidden states, which the mel
+decoder and Vocos turn into 24 kHz audio in one shot (the reference's
+``_device_decode`` with ``pipelined_decode=False``).  Both passes run the
+Generator, whose every decode step is the K1 kernel on CUDA.
+
+Entry points run on CUDA unless ``device="cpu"`` is passed to :meth:`load`
+or :meth:`load_params`.  Streaming, the engine, voice cloning and the
+``use_decoder=False`` path are later slices of the port and raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+from dataclasses import dataclass
+from typing import List, Literal, Optional, Union
+
+import numpy as np
+import torch
+
+from . import codecs
+from .config import Config, load_spk_stat_string
+from .engine.generate import (GenerateRequest, GenerationOutputs, Generator,
+                              Interrupt, _round_up)
+from .models import dvae as dvae_mod
+from .models import embed as embed_mod
+from .models import llama as llama_mod
+from .models import vocos as vocos_mod
+from .models.speaker import Speaker
+from .models.tokenizer import Tokenizer
+from .norm import Normalizer
+from .weights import resolve_device, to_device
+
+_CLONE = "voice clone (ROADMAP.md, Queue 1: Voice clone)"
+
+
+class Chat:
+    def __init__(self, logger: logging.Logger = logging.getLogger(__name__),
+                 config: Optional[Config] = None):
+        self.logger = logger
+        self.config = config or Config()
+        self.normalizer = Normalizer(logger=logger)
+        self.context = Interrupt()
+        self._loaded = False
+
+    # ------------------------------------------------------------------
+    # Loading
+    # ------------------------------------------------------------------
+
+    def has_loaded(self, use_decoder=True) -> bool:
+        return self._loaded
+
+    def load(self, source: Literal["random"] = "random", seed: int = 0,
+             device=None, coef: Optional[str] = None) -> bool:
+        """Seeded random weights (the only source of this slice).
+
+        Weights are drawn on the CPU from a ``torch.Generator`` seeded with
+        ``seed`` and then moved to ``device`` (CUDA by default), so every
+        device gets the same weights.
+        """
+        if source != "random":
+            raise NotImplementedError(
+                "loading reference checkpoints is a later slice of the port "
+                "(ROADMAP.md, Queue 1: Reference-name weight loading)")
+        cfg = self.config
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        coef_arr = None if coef is None else codecs.decode_coef(coef)
+        self.load_params(
+            gpt=llama_mod.init_params(gen, cfg.gpt),
+            embed=embed_mod.init_params(gen, cfg.gpt),
+            decoder=dvae_mod.init_decoder_params(gen, cfg.decoder, coef_arr),
+            vocos=vocos_mod.init_params(gen, cfg.vocos),
+            device=dev)
+        return True
+
+    def load_params(self, gpt: dict, embed: dict, decoder: dict, vocos: dict,
+                    device=None) -> "Chat":
+        """Load parameter trees in the JAX package's layouts (numpy arrays
+        or tensors, e.g. bridged with ``weights.from_numpy``)."""
+        cfg = self.config
+        self.device = resolve_device(device)
+        self.gpt_params = to_device(gpt, self.device)
+        self.embed_params = to_device(embed, self.device)
+        self.decoder_params = to_device(decoder, self.device)
+        self.vocos_params = to_device(vocos, self.device)
+        self.tokenizer = Tokenizer(None, vocab_size=cfg.gpt.num_text_tokens)
+        self.speaker = Speaker(cfg.gpt.hidden_size, load_spk_stat_string())
+        self.coef = dvae_mod.coef_string(self.decoder_params)
+        self.generator = Generator(
+            cfg.gpt, self.gpt_params, self.embed_params,
+            prefill_bucket=cfg.runtime.prefill_bucket)
+        self._loaded = True
+        return self
+
+    def interrupt(self):
+        self.context.set(True)
+
+    # ------------------------------------------------------------------
+    # Speakers
+    # ------------------------------------------------------------------
+
+    def sample_random_speaker(self) -> str:
+        return self.speaker.sample_random()
+
+    def sample_audio_speaker(self, wav: np.ndarray) -> str:
+        raise NotImplementedError(f"sample_audio_speaker is part of {_CLONE}")
+
+    # ------------------------------------------------------------------
+    # Inference params (API parity with the reference)
+    # ------------------------------------------------------------------
+
+    @dataclass(repr=False, eq=False)
+    class RefineTextParams:
+        prompt: str = ""
+        top_P: float = 0.7
+        top_K: int = 20
+        temperature: float = 0.7
+        repetition_penalty: float = 1.0
+        max_new_token: int = 384
+        min_new_token: int = 0
+        show_tqdm: bool = True
+        ensure_non_empty: bool = True
+        manual_seed: Optional[int] = None
+
+    @dataclass(repr=False, eq=False)
+    class InferCodeParams(RefineTextParams):
+        prompt: str = "[speed_5]"
+        spk_emb: Optional[str] = None
+        spk_smp: Optional[str] = None
+        txt_smp: Optional[str] = None
+        temperature: float = 0.3
+        repetition_penalty: float = 1.05
+        max_new_token: int = 2048
+        stream_batch: int = 24
+        stream_speed: int = 12000
+        pass_first_n_batches: int = 2
+
+    # ------------------------------------------------------------------
+    # Inference
+    # ------------------------------------------------------------------
+
+    def infer(
+        self,
+        text: Union[str, List[str]],
+        stream: bool = False,
+        lang: Optional[str] = None,
+        skip_refine_text: bool = False,
+        refine_text_only: bool = False,
+        use_decoder: bool = True,
+        do_text_normalization: bool = True,
+        do_homophone_replacement: bool = True,
+        split_text: bool = True,
+        max_split_batch: int = 4,
+        params_refine_text: Optional["Chat.RefineTextParams"] = None,
+        params_infer_code: Optional["Chat.InferCodeParams"] = None,
+    ):
+        if stream:
+            raise NotImplementedError(
+                "streaming is a later slice of the port (ROADMAP.md, "
+                "Queue 1: Streaming)")
+        if not use_decoder:
+            raise NotImplementedError(
+                "use_decoder=False decodes codes through the DVAE's GFSQ, "
+                f"part of {_CLONE}")
+        params_refine_text = params_refine_text or Chat.RefineTextParams()
+        params_infer_code = params_infer_code or Chat.InferCodeParams()
+        self.context.set(False)
+
+        if split_text and isinstance(text, str):
+            if "\n" in text:
+                text = text.split("\n")
+            else:
+                text = [t for t in re.split(r"(?<=。)|(?<=\.\s)", text) if t]
+            self.logger.info("split text into %d parts", len(text))
+        if isinstance(text, str):
+            text = [text]
+        if len(text) == 0:
+            return []
+
+        res_gen = self._infer(
+            text, lang, skip_refine_text, refine_text_only,
+            do_text_normalization, do_homophone_replacement, split_text,
+            max_split_batch, params_refine_text, params_infer_code)
+        if refine_text_only:
+            return next(res_gen)
+        stripped = []
+        thr = np.float32(1e-5)
+        for wavs in res_gen:
+            for wav in wavs:
+                stripped.append(wav[np.abs(wav) > thr])
+        if split_text:
+            return [np.concatenate(stripped) if stripped else
+                    np.array([], np.float32)]
+        return stripped
+
+    def _infer(self, text, lang, skip_refine_text, refine_text_only,
+               do_text_normalization, do_homophone_replacement, split_text,
+               max_split_batch, params_refine_text, params_infer_code):
+        text = [self.normalizer(t, do_text_normalization,
+                                do_homophone_replacement, lang)
+                for t in text]
+        if not skip_refine_text:
+            refined = self._refine_text(text, params_refine_text)
+            text_tokens = [t[t < self.tokenizer.break_0_ids]
+                           for t in refined.ids]
+            text = self.tokenizer.decode(text_tokens)
+            refined.destroy()
+            if refine_text_only:
+                yield "\n".join(text) if split_text else text
+                return
+        if split_text and len(text) > 1 and params_infer_code.spk_smp is None:
+            # the reference synthesizes segment 0 and clones its voice for
+            # the rest (chattts_tpu/core.py:421-427)
+            raise NotImplementedError(
+                f"split text with several segments takes the auto-clone "
+                f"branch, part of {_CLONE}; pass split_text=False or spk_smp")
+        if split_text:
+            batches = [text[i:i + max_split_batch]
+                       for i in range(0, len(text), max_split_batch)]
+        else:
+            batches = [text]
+        for batch in batches:
+            yield self._generate_wavs(batch, params_infer_code)
+
+    def _generate_wavs(self, batch: List[str],
+                       params: "Chat.InferCodeParams") -> np.ndarray:
+        result = next(self._infer_code(batch, params))
+        wavs = self._decode_to_wavs(result)
+        result.destroy()
+        return wavs
+
+    def _device_decode(self, hid: torch.Tensor, end: torch.Tensor
+                       ) -> torch.Tensor:
+        """hid (B, Tpad, D), end (B,) kept lengths -> wav (B, N).
+
+        Zeroes each row's tail before the conv stacks (zero features are not
+        inert through norm and conv) and again on the waveform."""
+        cfg = self.config
+        spc = 2 * cfg.vocos.hop_length  # samples per code step
+        tmask = torch.arange(hid.shape[1], device=hid.device)[None, :] < end[:, None]
+        mel = dvae_mod.decode_from_hidden(self.decoder_params,
+                                          hid * tmask[..., None], cfg.decoder)
+        wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
+        smask = (torch.arange(wav.shape[1], device=wav.device)[None, :]
+                 < (end * spc)[:, None])
+        return wav * smask
+
+    def _decode_to_wavs(self, result: GenerationOutputs) -> np.ndarray:
+        hid = result.hiddens_dev  # (B, n_max, D)
+        B, n_max = hid.shape[0], hid.shape[1]
+        if n_max == 0:
+            return np.zeros((B, 0), np.float32)
+        Tpad = _round_up(n_max, self.config.runtime.decode_bucket // 4 or 1)
+        hid = torch.nn.functional.pad(hid, (0, 0, 0, Tpad - n_max))
+        return self._device_decode(hid, result.end_dev).cpu().numpy()
+
+    # -- generation passes ---------------------------------------------
+
+    def _refine_text(self, text: List[str],
+                     params: "Chat.RefineTextParams") -> GenerationOutputs:
+        cfg = self.config.gpt
+        prompts = Speaker.decorate_text_prompts(text, params.prompt)
+        ids, attn, tmask = self.tokenizer.encode(prompts, cfg.num_vq)
+        req = GenerateRequest(
+            ids=ids, attn_mask=attn, text_mask=tmask, infer_text=True,
+            eos_token=self.tokenizer.eos_token,
+            temperature=np.asarray([params.temperature], np.float32),
+            top_p=params.top_P, top_k=params.top_K,
+            repetition_penalty=params.repetition_penalty,
+            max_new=params.max_new_token, min_new=params.min_new_token,
+            seed=params.manual_seed, ensure_non_empty=params.ensure_non_empty)
+        return next(self.generator.generate(req, self.context))
+
+    def _code_inputs(self, text, params: "Chat.InferCodeParams"):
+        """Tokenized inputs of the code pass: (ids, attn, tmask, temp, spk)."""
+        cfg = self.config.gpt
+        prompts = Speaker.decorate_code_prompts(
+            list(text), params.prompt, params.txt_smp, params.spk_emb)
+        code_prompt = (Speaker.decode_prompt(params.spk_smp)
+                       if params.spk_smp is not None else None)
+        ids, attn, tmask = self.tokenizer.encode(
+            prompts, cfg.num_vq, prompt=code_prompt)
+        temp = (np.asarray(params.temperature, np.float32)
+                if isinstance(params.temperature, list)
+                else np.full((cfg.num_vq,), params.temperature, np.float32))
+        spk = (Speaker.decode(params.spk_emb)
+               if params.spk_emb is not None else None)
+        return ids, attn, tmask, temp, spk
+
+    def _infer_code(self, text: List[str], params: "Chat.InferCodeParams"):
+        cfg = self.config.gpt
+        ids, attn, tmask, temperature, spk_vec = self._code_inputs(text, params)
+        req = GenerateRequest(
+            ids=ids, attn_mask=attn, text_mask=tmask, infer_text=False,
+            eos_token=cfg.num_audio_tokens - 1, temperature=temperature,
+            top_p=params.top_P, top_k=params.top_K,
+            repetition_penalty=params.repetition_penalty,
+            max_new=params.max_new_token, min_new=params.min_new_token,
+            spk_vec=spk_vec, spk_emb_ids=self.tokenizer.spk_emb_ids,
+            seed=params.manual_seed, ensure_non_empty=params.ensure_non_empty,
+            return_hidden=True)
+        return self.generator.generate(req, self.context)

@@ -1,0 +1,263 @@
+"""Autoregressive generation (port of ``chattts_tpu/engine/generate.py``).
+
+The JAX package runs its decode loop inside one jitted ``lax.while_loop``;
+here the loop is Python over steps, each step being the same sequence as
+the reference's ``step_body``: head -> sample -> embed -> K1 decode step
+(``ops/decode_step.py``) -> final ``rms_norm``.  Everything stays on the
+device; the host reads the all-finished flag every ``SYNC_EVERY`` steps
+(steps run after every row finished change no output: finished rows no
+longer count toward ``end_idx``).
+
+Only what the main path needs is ported: the scalar-``cur`` generator with
+a flat bf16 KV cache (L, B, T, HD), prompt bucketing, the repetition-penalty
+window, EOS handling and the ``ensure_non_empty`` retry.  Streaming,
+speculation and the per-slot engine are later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import GPTConfig
+from ..models import embed as embed_mod
+from ..models import llama
+from ..ops import decode_step as k1
+from ..ops import sampling
+
+REP_WINDOW = 16  # trailing-token window of the repetition penalty
+SYNC_EVERY = 8   # decode steps between host reads of the finished flags
+
+
+@dataclass
+class GenerationOutputs:
+    """Results of one generation call.
+
+    ``hiddens_dev`` (B, n_max, D) f32 and ``end_dev`` (B,) stay on the
+    device for the mel decoder when the request asked for hiddens.
+    """
+
+    ids: List[np.ndarray]       # per-seq (Ti,) text ids or (Ti, num_vq) codes
+    finished: np.ndarray        # (B,) bool
+    hiddens_dev: Optional[torch.Tensor] = None
+    end_dev: Optional[torch.Tensor] = None
+    steps: int = 0              # decode steps run (K1 launches)
+
+    def destroy(self):
+        self.ids = []
+        self.hiddens_dev = None
+        self.end_dev = None
+
+
+class Interrupt:
+    """Cooperative cancel flag, polled between decode steps."""
+
+    def __init__(self):
+        self._flag = False
+
+    def set(self, v: bool):
+        self._flag = v
+
+    def get(self) -> bool:
+        return self._flag
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class GenerateRequest:
+    """Host-side inputs for one generation call."""
+
+    ids: np.ndarray          # (B, T0, num_vq) int32, left-padded
+    attn_mask: np.ndarray    # (B, T0) bool
+    text_mask: np.ndarray    # (B, T0) bool
+    infer_text: bool
+    eos_token: int           # text eos id (code path uses num_audio_tokens-1)
+    temperature: np.ndarray  # (num_vq,) or (1,)
+    top_p: float = 0.7
+    top_k: int = 20
+    repetition_penalty: float = 1.0
+    max_new: int = 2048
+    min_new: int = 0
+    spk_vec: Optional[np.ndarray] = None  # (D,) raw speaker embedding
+    spk_emb_ids: int = 0
+    seed: Optional[int] = None
+    ensure_non_empty: bool = True
+    return_hidden: bool = False
+    # noise(step) -> (N, V) Gumbel noise of that step's draw, to reproduce
+    # another sampler's draws; None draws from a torch.Generator
+    noise: Optional[Callable[[int], torch.Tensor]] = None
+
+
+class Generator:
+    """Bucketing, the step loop, retry and output trimming."""
+
+    def __init__(self, cfg: GPTConfig, gpt_params: dict, embed_params: dict,
+                 prefill_bucket: int = 32):
+        self.cfg = cfg
+        self.gpt_params = gpt_params
+        self.embed_params = embed_params
+        self.prefill_bucket = prefill_bucket
+        self.packed = k1.pack_weights(gpt_params, cfg)
+        self.device = gpt_params["norm"].device
+        self._rng_counter = 0
+
+    def _pad_prompt(self, req: GenerateRequest):
+        """Left-extend prompts to the bucketed length (padding stays left)."""
+        B, T0, _ = req.ids.shape
+        Tpad = max(_round_up(T0, self.prefill_bucket), self.prefill_bucket)
+        if Tpad == T0:
+            return req.ids, req.attn_mask, req.text_mask, T0
+        d = Tpad - T0
+        ids = np.pad(req.ids, ((0, 0), (d, 0), (0, 0)))
+        attn = np.pad(req.attn_mask, ((0, 0), (d, 0)))
+        tmask = np.pad(req.text_mask, ((0, 0), (d, 0)))
+        return ids, attn, tmask, Tpad
+
+    def _next_seed(self, req: GenerateRequest, attempt: int) -> int:
+        if req.seed is not None:
+            return int(req.seed)
+        self._rng_counter += 1
+        seed = np.random.SeedSequence(
+            [self._rng_counter, attempt]).generate_state(1)[0]
+        return int(seed) & 0x7FFFFFFF
+
+    def generate(self, req: GenerateRequest,
+                 context: Optional[Interrupt] = None):
+        """Generator yielding the final GenerationOutputs."""
+        context = context or Interrupt()
+        max_attempts = 4 if (req.ensure_non_empty and req.seed is None) else 1
+        for attempt in range(max_attempts):
+            out, any_empty = self._run_once(req, context, attempt)
+            if not any_empty or attempt == max_attempts - 1 or context.get():
+                yield out
+                return
+
+    def _prefill(self, req, ids, attn, tmask, T0, Tbuf):
+        cfg, dev = self.cfg, self.device
+        B = ids.shape[0]
+        ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
+        attn_t = torch.as_tensor(attn, dtype=torch.bool, device=dev)
+        tmask_t = torch.as_tensor(tmask, dtype=torch.bool, device=dev)
+        emb0 = embed_mod.embed_prompt(self.embed_params, ids_t, tmask_t)
+        if req.spk_vec is not None:
+            spk = torch.as_tensor(req.spk_vec, dtype=torch.float32, device=dev)
+            n = spk / torch.clamp(torch.linalg.vector_norm(spk), min=1e-12)
+            cond = (ids_t[..., 0] == req.spk_emb_ids)[..., None]
+            emb0 = torch.where(cond, n[None, None, :].to(emb0.dtype), emb0)
+        positions = torch.clamp(torch.cumsum(attn_t.long(), dim=1) - 1, min=0)
+        cache = llama.KVCache.create(cfg, B, Tbuf, device=dev)
+        hidden_all, cache = llama.prefill(self.gpt_params, emb0, attn_t,
+                                          positions, cache, cfg)
+        HD = cfg.num_attention_heads * cfg.head_dim
+        kc = torch.stack([c.reshape(B, Tbuf, HD) for c in cache.k])
+        vc = torch.stack([c.reshape(B, Tbuf, HD) for c in cache.v])
+        return hidden_all[:, -1], kc, vc, ids_t, attn_t
+
+    def _run_once(self, req: GenerateRequest, context: Interrupt,
+                  attempt: int):
+        cfg, dev = self.cfg, self.device
+        num_vq = cfg.num_vq
+        ids, attn, tmask, T0 = self._pad_prompt(req)
+        B = ids.shape[0]
+        # buffer lengths are multiples of 8, as the reference's; generation
+        # still stops at max_new and the rounded tail is never written
+        n_buf = _round_up(req.max_new, 8)
+        Tbuf = T0 + n_buf
+        hidden, kc, vc, ids0, attn_t = self._prefill(req, ids, attn, tmask,
+                                                     T0, Tbuf)
+        ids_buf = torch.zeros((B, Tbuf, num_vq), dtype=torch.long, device=dev)
+        ids_buf[:, :T0] = ids0
+        # first readable cache slot per row: left padding never changes, so
+        # this is the reference's per-step argmax(key_valid) computed once
+        # (a row with no prompt token first sees its own slot T0)
+        lo = torch.where(attn_t.any(1), attn_t.int().argmax(1),
+                         torch.full((B,), T0, dtype=torch.long, device=dev))
+        pos_next = attn_t.long().sum(1)
+        finish = torch.zeros((B,), dtype=torch.bool, device=dev)
+        end_idx = torch.zeros((B,), dtype=torch.long, device=dev)
+        hiddens = torch.zeros((B, n_buf, cfg.hidden_size), dtype=torch.float32,
+                              device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self._next_seed(req, attempt))
+        sp = sampling.SamplingParams(
+            temperature=torch.as_tensor(req.temperature, dtype=torch.float32,
+                                        device=dev),
+            top_p=float(req.top_p), top_k=int(req.top_k),
+            repetition_penalty=float(req.repetition_penalty),
+            min_new=int(req.min_new))
+        if req.infer_text:
+            eos, max_penalized = int(req.eos_token), cfg.num_text_tokens
+        else:
+            eos = max_penalized = cfg.num_audio_tokens - 1
+        wpos_base = torch.arange(REP_WINDOW, device=dev)
+
+        step = 0
+        cur = T0
+        while step < req.max_new:
+            if step % SYNC_EVERY == 0 and step and (
+                    bool(finish.all()) or context.get()):
+                break
+            if req.infer_text:
+                logits = embed_mod.head_text(self.embed_params, hidden)
+            else:
+                logits = embed_mod.head_code(self.embed_params, hidden).reshape(
+                    B * num_vq, cfg.num_audio_tokens)
+            start = min(max(cur - REP_WINDOW, 0), Tbuf - REP_WINDOW)
+            win = ids_buf[:, start:start + REP_WINDOW]
+            wpos = start + wpos_base
+            wmask = (wpos >= T0) & (wpos < cur)
+            if req.infer_text:
+                win_rows = win[:, :, 0]
+            else:
+                win_rows = win.transpose(1, 2).reshape(B * num_vq, REP_WINDOW)
+            wmask_rows = wmask[None].expand(win_rows.shape[0], REP_WINDOW)
+            ids_next = sampling.sample(
+                logits, sp, win_rows, wmask_rows, step, eos, max_penalized,
+                noise=None if req.noise is None else req.noise(step),
+                generator=gen)
+            if req.infer_text:
+                token = ids_next[:, None].expand(B, num_vq)
+                eos_hit = ids_next == eos
+            else:
+                token = ids_next.reshape(B, num_vq)
+                eos_hit = (token == eos).any(-1)
+            finish = finish | eos_hit
+            ids_buf[:, cur] = token
+            hiddens[:, step] = hidden
+            end_idx = end_idx + (~finish).long()
+
+            emb = (embed_mod.embed_text_step(self.embed_params, token[:, 0])
+                   if req.infer_text
+                   else embed_mod.embed_code_step(self.embed_params, token))
+            x_out = k1.decode_step(self.packed, emb, kc, vc, cur, lo,
+                                   pos_next, cfg)
+            hidden = llama.rms_norm(x_out, self.gpt_params["norm"],
+                                    cfg.rms_norm_eps)
+            cur += 1
+            pos_next = pos_next + 1
+            step += 1
+        return self._materialize(req, ids_buf, T0, end_idx, finish, hiddens,
+                                 step)
+
+    def _materialize(self, req, ids_buf, T0, end_idx, finish, hiddens, steps):
+        end = end_idx.cpu().numpy()
+        fin = finish.cpu().numpy()
+        gen_ids = ids_buf[:, T0:].cpu().numpy().astype(np.int32)
+        n_max = int(end.max()) if end.size else 0
+        out_ids = []
+        for b in range(gen_ids.shape[0]):
+            seq = gen_ids[b, : int(end[b])]
+            out_ids.append(seq[:, 0].copy() if req.infer_text else seq.copy())
+        out = GenerationOutputs(ids=out_ids, finished=fin,
+                                steps=steps)
+        if req.return_hidden:
+            out.hiddens_dev = hiddens[:, :n_max]
+            out.end_dev = end_idx
+        any_empty = bool((fin & (end == 0)).any())
+        return out, any_empty

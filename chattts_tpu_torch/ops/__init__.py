@@ -1,0 +1,1 @@
+"""Subpackage of chattts_tpu_torch."""

@@ -1,0 +1,80 @@
+"""The port stands alone: no JAX, no chattts_tpu, and CUDA by default.
+
+The import check reads the source (AST), not ``sys.modules``: the test
+process has JAX loaded already, and so may any interpreter here.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import chattts_tpu_torch
+from chattts_tpu_torch import Chat
+from chattts_tpu_torch.weights import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "chattts_tpu")
+
+
+def _port_files():
+    files = sorted((REPO / "chattts_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(REPO)}: {mod}")
+    assert not bad, bad
+
+
+def test_port_keeps_its_own_resources():
+    res = Path(chattts_tpu_torch.__file__).parent / "res"
+    assert (res / "spk_stat.b14").exists()
+    assert (res / "homophones_map.json").exists()
+    assert (Path(chattts_tpu_torch.__file__).parent / "csrc"
+            / "decode_step.cu").exists()
+
+
+def test_port_pyproject_packages_complete():
+    """The port's own pyproject.toml lists every subpackage and ships its
+    resources and CUDA sources (a missing entry breaks the installed
+    package)."""
+    import tomllib
+
+    pkg = REPO / "chattts_tpu_torch"
+    cfg = tomllib.loads((pkg / "pyproject.toml").read_text())
+    listed = set(cfg["tool"]["setuptools"]["packages"])
+    found = {"chattts_tpu_torch"} | {
+        f"chattts_tpu_torch.{p.parent.name}" for p in pkg.glob("*/__init__.py")}
+    assert listed == found
+    data = cfg["tool"]["setuptools"]["package-data"]["chattts_tpu_torch"]
+    for sub, pattern in (("res", "*"), ("csrc", "*.cu")):
+        for f in (pkg / sub).glob(pattern):
+            assert any(f.match(g.split("/")[-1]) for g in data
+                       if g.startswith(f"{sub}/")), f.name
+
+
+def test_entry_points_default_to_cuda(tiny_config, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Chat().load(source="random", seed=0)
+    assert resolve_device("cpu").type == "cpu"
