@@ -5,10 +5,13 @@ rewrites the normalized text through the text head, then the code pass
 samples 4-codebook audio codes and keeps the hidden states, which the mel
 decoder and Vocos turn into 24 kHz audio in one shot (the reference's
 ``_device_decode`` with ``pipelined_decode=False``).  Both passes run the
-Generator, whose every decode step is the K1 kernel on CUDA.
+Generator, or with ``use_engine=True`` the continuous-batching Engine
+(``engine/batching.py``), whose slots concurrent callers share; either way
+every decode step is the hand-written kernel of ``ops/decode_step.py`` on
+CUDA, on the int8 KV cache unless ``kv_bits=0`` asks for bf16.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed to :meth:`load`
-or :meth:`load_params`.  Streaming, the engine, voice cloning and the
+or :meth:`load_params`.  Streaming, voice cloning and the
 ``use_decoder=False`` path are later slices of the port and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -34,6 +37,7 @@ from .models import vocos as vocos_mod
 from .models.speaker import Speaker
 from .models.tokenizer import Tokenizer
 from .norm import Normalizer
+from .ops.decode_step import pack_weights
 from .weights import resolve_device, to_device
 
 _CLONE = "voice clone (ROADMAP.md, Queue 1: Voice clone)"
@@ -56,12 +60,20 @@ class Chat:
         return self._loaded
 
     def load(self, source: Literal["random"] = "random", seed: int = 0,
-             device=None, coef: Optional[str] = None) -> bool:
-        """Seeded random weights (the only source of this slice).
+             device=None, coef: Optional[str] = None,
+             use_engine: bool = False, kv_bits: int = 8) -> bool:
+        """Seeded random weights (the only source so far).
 
         Weights are drawn on the CPU from a ``torch.Generator`` seeded with
         ``seed`` and then moved to ``device`` (CUDA by default), so every
         device gets the same weights.
+
+        ``use_engine=True`` routes the refine-text pass and code generation
+        through the continuous-batching engine (the reference's
+        ``load(use_engine=True)``): per-request ``manual_seed``,
+        ``ensure_non_empty`` and interrupt keep the generator path's meaning.
+        ``kv_bits``: 8 keeps the KV cache in int8 rows with embedded scales
+        (the reference's default), 0 in bf16.
         """
         if source != "random":
             raise NotImplementedError(
@@ -76,14 +88,19 @@ class Chat:
             embed=embed_mod.init_params(gen, cfg.gpt),
             decoder=dvae_mod.init_decoder_params(gen, cfg.decoder, coef_arr),
             vocos=vocos_mod.init_params(gen, cfg.vocos),
-            device=dev)
+            device=dev, use_engine=use_engine, kv_bits=kv_bits)
         return True
 
     def load_params(self, gpt: dict, embed: dict, decoder: dict, vocos: dict,
-                    device=None) -> "Chat":
+                    device=None, use_engine: bool = False,
+                    kv_bits: int = 8) -> "Chat":
         """Load parameter trees in the JAX package's layouts (numpy arrays
         or tensors, e.g. bridged with ``weights.from_numpy``)."""
         cfg = self.config
+        self.use_engine = use_engine
+        self.kv_bits = kv_bits
+        self._code_engines = {}
+        self._text_engine = None
         self.device = resolve_device(device)
         self.gpt_params = to_device(gpt, self.device)
         self.embed_params = to_device(embed, self.device)
@@ -92,9 +109,13 @@ class Chat:
         self.tokenizer = Tokenizer(None, vocab_size=cfg.gpt.num_text_tokens)
         self.speaker = Speaker(cfg.gpt.hidden_size, load_spk_stat_string())
         self.coef = dvae_mod.coef_string(self.decoder_params)
+        # one packed copy of the decoder weights serves the generator and
+        # every engine tier
+        self.packed = pack_weights(self.gpt_params, cfg.gpt)
         self.generator = Generator(
             cfg.gpt, self.gpt_params, self.embed_params,
-            prefill_bucket=cfg.runtime.prefill_bucket)
+            prefill_bucket=cfg.runtime.prefill_bucket, kv_bits=kv_bits,
+            packed=self.packed)
         self._loaded = True
         return self
 
@@ -267,6 +288,34 @@ class Chat:
         cfg = self.config.gpt
         prompts = Speaker.decorate_text_prompts(text, params.prompt)
         ids, attn, tmask = self.tokenizer.encode(prompts, cfg.num_vq)
+        if self.use_engine:
+            from .engine.batching import EngineRequest
+
+            eng = self._engine_for_text()
+            lens = attn.sum(1)
+            if lens.max() <= max(eng.ecfg.buckets):
+                reqs = []
+                for b in range(ids.shape[0]):
+                    n = int(lens[b])
+                    reqs.append(EngineRequest(
+                        request_id=f"refine-{id(params)}-{b}",
+                        ids=ids[b, ids.shape[1] - n:],
+                        text_mask=tmask[b, ids.shape[1] - n:],
+                        temperature=np.asarray([params.temperature],
+                                               np.float32),
+                        top_p=params.top_P, top_k=params.top_K,
+                        repetition_penalty=params.repetition_penalty,
+                        min_new=params.min_new_token,
+                        max_new=params.max_new_token,
+                        seed=params.manual_seed,
+                        ensure_non_empty=params.ensure_non_empty))
+                outs = eng.generate(reqs, context=self.context)
+                return GenerationOutputs(
+                    ids=[o.ids for o in outs],
+                    finished=np.asarray(
+                        [o.finish_reason == "eos" for o in outs]))
+            # prompts past the engine's bucket capacity: the one-shot
+            # generator takes any length
         req = GenerateRequest(
             ids=ids, attn_mask=attn, text_mask=tmask, infer_text=True,
             eos_token=self.tokenizer.eos_token,
@@ -293,9 +342,147 @@ class Chat:
                if params.spk_emb is not None else None)
         return ids, attn, tmask, temp, spk
 
+    # -- the engine route ------------------------------------------------
+
+    def _code_engine_geometry(self, tier: str):
+        """Static engine geometry of a code-engine tier.
+
+        Every tier carries the full generation region (``decode_bucket * 8``
+        new tokens): a step's cost follows the slot count and the cache rows
+        actually filled, not the configured cache length, so tiering is
+        about width only.
+
+        * ``"fast"``: 8 slots, the facade's usual split-batch workload.
+        * ``"capacity"``: 16 slots, the concurrent serving tier; device-
+          streaming slots are capped at 14 so queued work stays preemptable.
+        * ``"wide"``: 32 slots for saturated offline work; exists only with
+          the int8 KV cache.
+
+        Prompt capacity is sized from the position-embedding budget.
+        """
+        from .engine.batching import EngineConfig
+
+        rt = self.config.runtime
+        max_new = rt.decode_bucket * 8
+        if tier == "fast":
+            slots, prompt_cap, stream_cap = 8, 256, None
+        elif tier == "wide":
+            slots, prompt_cap, stream_cap = 32, 512, 28
+        else:
+            slots, prompt_cap, stream_cap = 16, 512, 14
+        budget = self.config.gpt.max_position_embeddings - max_new
+        max_prompt = max(64, min(prompt_cap, (budget // 64) * 64))
+        buckets = tuple(b for b in (64, 128, 256, 512)
+                        if b <= max_prompt) or (max_prompt,)
+        return EngineConfig(
+            max_num_seqs=slots, max_prompt_len=max_prompt,
+            max_new_tokens=max_new, chunk_steps=24, infer_text=False,
+            collect_hidden=True, prompt_buckets=buckets,
+            preempt_after_chunks=4, max_stream_slots=stream_cap)
+
+    def _engine_for_code(self, tier: str = "capacity"):
+        """Build the continuous-batching code engine of ``tier`` on first
+        use."""
+        from .engine import batching
+
+        if tier == "wide" and batching.fused_slot_limit(self.kv_bits) < 32:
+            self.logger.warning(
+                "the wide tier needs the int8 KV cache; falling back to "
+                "capacity")
+            tier = "capacity"
+        if tier not in self._code_engines:
+            self._code_engines[tier] = batching.Engine(
+                self.config.gpt, self._code_engine_geometry(tier),
+                self.gpt_params, self.embed_params,
+                spk_emb_ids=self.tokenizer.spk_emb_ids, packed=self.packed,
+                kv_bits=self.kv_bits)
+        return self._code_engines[tier]
+
+    def _code_tier_for(self, n_requests: int, max_new: int,
+                       prompt_len: int) -> str:
+        """The cheapest code-engine tier that fits the workload.  Routing is
+        by batch width and prompt length; ``max_new`` is only a capacity
+        check (the default ceiling says nothing about how long a request
+        that ends on EOS runs).  Batches wider than the 16-slot tier go to
+        the 32-slot tier when the KV cache is int8.  Builds no engine."""
+        from .engine import batching
+
+        fast = self._code_engine_geometry("fast")
+        if (n_requests <= fast.max_num_seqs
+                and max_new <= fast.max_new_tokens
+                and prompt_len <= max(fast.buckets)):
+            return "fast"
+        cap = self._code_engine_geometry("capacity")
+        wide = self._code_engine_geometry("wide")
+        if (n_requests > cap.max_num_seqs and prompt_len <= max(wide.buckets)
+                and batching.fused_slot_limit(self.kv_bits)
+                >= wide.max_num_seqs):
+            return "wide"
+        return "capacity"
+
+    def _engine_for_text(self):
+        """Text-mode engine of the refine pass under ``use_engine``."""
+        if self._text_engine is None:
+            from .engine.batching import Engine, EngineConfig
+
+            self._text_engine = Engine(
+                self.config.gpt,
+                EngineConfig(
+                    max_num_seqs=8, max_prompt_len=256, max_new_tokens=512,
+                    chunk_steps=24, infer_text=True,
+                    text_eos_token=self.tokenizer.eos_token,
+                    collect_hidden=False, prompt_buckets=(64, 128, 256),
+                    preempt_after_chunks=4),
+                self.gpt_params, self.embed_params,
+                spk_emb_ids=self.tokenizer.spk_emb_ids, packed=self.packed,
+                kv_bits=self.kv_bits)
+        return self._text_engine
+
+    def _code_requests(self, params: "Chat.InferCodeParams", inputs):
+        from .engine.batching import EngineRequest
+
+        ids, attn, tmask, temp, spk = inputs
+        reqs = []
+        for b in range(ids.shape[0]):
+            n = int(attn[b].sum())
+            reqs.append(EngineRequest(
+                request_id=f"chat-{id(params)}-{b}",
+                ids=ids[b, ids.shape[1] - n:],
+                text_mask=tmask[b, ids.shape[1] - n:],
+                temperature=temp, top_p=params.top_P, top_k=params.top_K,
+                repetition_penalty=params.repetition_penalty,
+                min_new=params.min_new_token,
+                max_new=params.max_new_token, spk_vec=spk,
+                seed=params.manual_seed,
+                ensure_non_empty=params.ensure_non_empty))
+        return reqs
+
+    def _infer_code_engine(self, params: "Chat.InferCodeParams", inputs,
+                           engine):
+        """Engine-backed code generation (non-streaming): the outputs keep
+        their hiddens on the device and feed the device decode path."""
+        from .engine.batching import outputs_to_generation
+
+        outs = engine.generate(self._code_requests(params, inputs),
+                               context=self.context)
+        yield outputs_to_generation(outs)
+
     def _infer_code(self, text: List[str], params: "Chat.InferCodeParams"):
         cfg = self.config.gpt
-        ids, attn, tmask, temperature, spk_vec = self._code_inputs(text, params)
+        inputs = self._code_inputs(text, params)
+        ids, attn, tmask, temperature, spk_vec = inputs
+        if self.use_engine:
+            plen = int(attn.sum(1).max())
+            cap = max(self._code_engine_geometry("capacity").buckets)
+            if plen <= cap:
+                eng = self._engine_for_code(self._code_tier_for(
+                    len(text), params.max_new_token, plen))
+                return self._infer_code_engine(params, inputs, eng)
+            # a prompt longer than the engine's prompt capacity falls back
+            # to the one-shot generator, which buckets any length
+            self.logger.info(
+                "prompt length %d exceeds engine capacity %d; using the "
+                "generator path", plen, cap)
         req = GenerateRequest(
             ids=ids, attn_mask=attn, text_mask=tmask, infer_text=False,
             eos_token=cfg.num_audio_tokens - 1, temperature=temperature,

@@ -1,8 +1,13 @@
-// K1: one whole autoregressive decode step (all L layers) for the Llama
-// decoder, bf16 weights and bf16 KV cache, one shared write position `cur`.
-//
-// Replaces the Pallas TPU kernel chattts_tpu/ops/pallas_step.py::_kernel in
-// its bf16-slab / bf16-cache / scalar-cur variant.  Per layer it computes
+// One whole autoregressive decode step (all L layers) for the Llama decoder
+// with bf16 weights.  Replaces the Pallas TPU kernel
+// chattts_tpu/ops/pallas_step.py::_kernel in four of its variants:
+//   K1    bf16 KV cache, one shared write position `cur`
+//   K2    bf16 KV cache, a write position per row (continuous batching)
+//   K3    int8 KV cache with embedded per-(token, head) scales, shared `cur`
+//   K2+K3 int8 KV cache, a write position per row
+// `cur` is always a device array of B positions (a shared position is the
+// array with equal entries), so no launch depends on a host copy of it; the
+// cache type is a template parameter of the attention kernel.  Per layer:
 //   h = rms(x)*ln1 ; q,k,v = h@Wqkv ; rope(q), rope(k) ;
 //   cache[l, :, cur] = k, v ; o = softmax(q.K[lo..cur]/sqrt(Dh)) V[lo..cur] ;
 //   x += o@Wo ; x += (silu(h2@Wg) * (h2@Wu)) @ Wd  with h2 = rms(x)*ln2
@@ -11,9 +16,20 @@
 // rounded to bf16 before the scores, and probabilities rounded to bf16 in
 // the numerator (the denominator sums them in f32).
 //
+// The int8 cache row is [q(HD) | m(H) | e(H) | zeros], HD + 128 bytes, with
+// head scale m * 2^e (chattts_tpu_torch/ops/kv_quant.py).  Appends quantize
+// the f32 roped k and the f32 v with that module's arithmetic (exact powers
+// of two, rintf, IEEE division).  Attention multiplies the int8 values as
+// bf16 against bf16(q*scale), scales each score by its key's m*2^e after
+// the sum, and folds each value row's m*2^e into p before p's bf16 rounding.
+//
+// A row's result depends on that row's inputs only, never on B or on the
+// other rows: every sum runs in an order fixed by the row's own shapes.
+//
 // Bound on an H100: the step streams every weight once,
 // L*(4*D*D + 3*D*I)*2 bytes (377 MB at D 768, I 3072, L 20: ~113 us at
-// 3.35 TB/s), plus 2*L*B*(cur-lo+1)*HD*2 bytes of KV reads.  Its arithmetic
+// 3.35 TB/s), plus 2*L*sum_b(cur_b-lo_b+1)*W bytes of KV reads and 2*L*B*W
+// of appended rows, W = 2*HD (bf16) or HD+128 (int8).  Its arithmetic
 // intensity is ~B flop/byte, far below the ~295 the tensor cores need, so
 // it is bound by bytes.  The design therefore reads each weight byte once
 // per step: `gemv` gives every block a tile of output columns for ALL B
@@ -26,7 +42,7 @@
 // attention and a TMA/wgmma weight stream are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC -o libk1.so decode_step.cu
+//        -Xcompiler -fPIC -o libdecode_step.so decode_step.cu
 // Bound to Python with ctypes (chattts_tpu_torch/ops/decode_step.py).
 
 #include <cuda_runtime.h>
@@ -35,7 +51,8 @@
 
 namespace {
 
-constexpr int kMaxB = 16;        // batch rows a gemv block carries
+constexpr int kMaxB = 32;        // most batch rows a step takes
+constexpr int kKvPad = 128;      // pad lanes of an int8 cache row
 constexpr int kGemvWarps = 4;    // warps per gemv block
 constexpr int kColsPerWarp = 2;  // output columns per warp
 constexpr int kAttnThreads = 128;
@@ -78,7 +95,9 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
 //   IN_RMS:  x[b, k] * rsqrt(mean_k x[b, :]^2 + eps) * lnw[k]
 //   IN_SILU: silu(x[b, k]) * x[b, K + k]      (x holds [gate | up])
 // W is (N, K) row-major bf16; K % 8 == 0; x rows are x_stride floats apart.
-template <int MODE, bool ADD>
+// BR (16 or 32) is the number of row accumulators a warp carries; a row's
+// sum does not depend on it.
+template <int MODE, bool ADD, int BR>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 gemv_kernel(const float* __restrict__ x, int x_stride,
             const float* __restrict__ lnw, const __nv_bfloat16* __restrict__ W,
@@ -140,11 +159,11 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
 
   const int n0 = (blockIdx.x * kGemvWarps + warp) * kColsPerWarp;
   if (n0 >= N) return;
-  float acc[kColsPerWarp][kMaxB];
+  float acc[kColsPerWarp][BR];
 #pragma unroll
   for (int c = 0; c < kColsPerWarp; ++c)
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[c][b] = 0.f;
+    for (int b = 0; b < BR; ++b) acc[c][b] = 0.f;
 
   const __nv_bfloat16* wrow[kColsPerWarp];
 #pragma unroll
@@ -161,7 +180,7 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
       unpack8(wv, wf[c]);
     }
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
+    for (int b = 0; b < BR; ++b) {
       if (b < B) {
         float xf[8];
         unpack8(*reinterpret_cast<const uint4*>(xs + (size_t)b * K + k0), xf);
@@ -176,7 +195,7 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
   for (int c = 0; c < kColsPerWarp; ++c) {
     const int n = n0 + c;
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
+    for (int b = 0; b < BR; ++b) {
       if (b < B) {
         const float s = warp_sum(acc[c][b]);
         if (lane == 0 && n < N) {
@@ -200,54 +219,124 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return r;
 }
 
-// One block per (head h, row b): rope q and k, append k and v at row `cur`
-// of this layer's cache, then attend q over rows [lo[b], cur] of the cache
-// and write o[b, h*Dh:(h+1)*Dh].  Rows outside the window are never read
-// or written.  Dh divides blockDim (128); shared memory holds Dh bf16-
-// rounded query values, the (cur - lo + 1) scores, and the partial sums.
+// Quantize one head of an appended row: x holds the head's Dh f32 values in
+// shared memory; row points at the int8 cache row.  Every thread derives the
+// head's scale (the same value), thread d stores value d, thread 0 the scale
+// bytes.  The arithmetic is ops/kv_quant.py::head_scales, step for step.
+__device__ __forceinline__ void kv8_append_head(const float* x, int8_t* row,
+                                                int h, int H, int Dh) {
+  float a = 0.f;
+  for (int d = 0; d < Dh; ++d) a = fmaxf(a, fabsf(x[d]));
+  const float sc = a / 127.0f;
+  int e = ilogbf(fmaxf(sc, 1e-30f));            // floor(log2), exact
+  float mant = ceilf(ldexpf(sc, -e) * 64.0f);   // in [64, 128]
+  if (mant > 127.0f) {
+    e += 1;
+    mant = 64.0f;
+  }
+  if (!(a > 0.0f)) mant = 0.0f;
+  const int es = min(max(e - 6, -126), 126);
+  const float div = fmaxf(ldexpf(mant, es), 1e-30f);
+  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
+    const float q = fminf(fmaxf(rintf(x[d] / div), -127.0f), 127.0f);
+    row[h * Dh + d] = (int8_t)q;
+  }
+  if (threadIdx.x == 0) {
+    row[H * Dh + h] = (int8_t)mant;
+    row[H * Dh + H + h] = (int8_t)es;
+  }
+}
+
+// One block per (head h, row b): rope q and k, append k and v at row cur[b]
+// of this layer's cache, then attend q over rows [lo[b], cur[b]] of the
+// cache and write o[b, h*Dh:(h+1)*Dh].  Rows outside the window are never
+// read, and only row cur[b] is written.  KV8 selects the int8 row format.
+// A position outside [0, T), or a window with no key, is not clamped: the
+// row's output is NaN, so the fault shows in the step's result.
+// Dh divides blockDim (128); shared memory holds Dh bf16-rounded query
+// values, the f32 k and v of the head (KV8), T scores and the partial sums.
+template <bool KV8>
 __global__ void __launch_bounds__(kAttnThreads)
 rope_append_attend_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ cosb,
                           const float* __restrict__ sinb,
-                          __nv_bfloat16* __restrict__ kc,
-                          __nv_bfloat16* __restrict__ vc,
+                          void* __restrict__ kc_raw, void* __restrict__ vc_raw,
+                          const int* __restrict__ cur,
                           const int* __restrict__ lo, float* __restrict__ o,
-                          int cur, int T, int H, int Dh, float scale) {
+                          int T, int H, int Dh, float scale) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[kAttnThreads / 32];
   const int h = blockIdx.x, b = blockIdx.y;
   const int HD = H * Dh, half = Dh / 2;
+  const int W = KV8 ? HD + kKvPad : HD;  // cache row width in elements
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   float* qs = sm;                     // [Dh]
-  float* part = sm + Dh;              // [nthreads]
-  float* sc = sm + Dh + nthreads;     // [cur - lo + 1]
+  float* kf = qs + Dh;                // [Dh] roped k, f32 (KV8)
+  float* vf = kf + Dh;                // [Dh] v, f32 (KV8)
+  float* part = vf + Dh;              // [nthreads]
+  float* sc = part + nthreads;        // [T]
+  __nv_bfloat16* kcb = static_cast<__nv_bfloat16*>(kc_raw);
+  __nv_bfloat16* vcb = static_cast<__nv_bfloat16*>(vc_raw);
+  int8_t* kc8 = static_cast<int8_t*>(kc_raw);
+  int8_t* vc8 = static_cast<int8_t*>(vc_raw);
+
+  const int c = cur[b];
+  const int lob = max(lo[b], 0);
+  const int n = c - lob + 1;
+  if (c < 0 || c >= T || n <= 0) {  // uniform over the block
+    for (int d = tid; d < Dh; d += nthreads)
+      o[(size_t)b * HD + (size_t)h * Dh + d] = __int_as_float(0x7fc00000);
+    return;
+  }
 
   const float* q = qkv + (size_t)b * 3 * HD + h * Dh;
   const float* k = q + HD;
   const float* v = q + 2 * HD;
-  const size_t row_cur = ((size_t)b * T + cur) * HD + (size_t)h * Dh;
+  const size_t row_cur = ((size_t)b * T + c) * W;
   for (int d = tid; d < Dh; d += nthreads) {
-    const float c = cosb[b * Dh + d], s = sinb[b * Dh + d];
+    const float cs = cosb[b * Dh + d], sn = sinb[b * Dh + d];
     const float rq = d < half ? -bf16_round(q[d + half]) : bf16_round(q[d - half]);
     const float rk = d < half ? -bf16_round(k[d + half]) : bf16_round(k[d - half]);
-    const float qr = q[d] * c + rq * s;
-    const float kr = k[d] * c + rk * s;
-    kc[row_cur + d] = __float2bfloat16_rn(kr);
-    vc[row_cur + d] = __float2bfloat16_rn(v[d]);
+    const float qr = q[d] * cs + rq * sn;
+    const float kr = k[d] * cs + rk * sn;
+    if (KV8) {
+      kf[d] = kr;
+      vf[d] = v[d];
+    } else {
+      kcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(kr);
+      vcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(v[d]);
+    }
     qs[d] = bf16_round(qr * scale);
   }
-  __syncthreads();  // the appended row and qs are visible block-wide
+  __syncthreads();  // qs (and kf, vf, or the appended row) visible block-wide
+  if (KV8) {
+    kv8_append_head(kf, kc8 + row_cur, h, H, Dh);
+    kv8_append_head(vf, vc8 + row_cur, h, H, Dh);
+    if (h == 0) {  // the lanes after the scales are written zero
+      for (int i = HD + 2 * H + tid; i < W; i += nthreads) {
+        kc8[row_cur + i] = 0;
+        vc8[row_cur + i] = 0;
+      }
+    }
+    __syncthreads();  // the appended row is visible block-wide
+  }
 
-  const int lob = lo[b];
-  const int n = cur - lob + 1;
   for (int i = warp; i < n; i += nwarps) {
-    const __nv_bfloat16* kr =
-        kc + ((size_t)b * T + lob + i) * HD + (size_t)h * Dh;
+    const size_t row = ((size_t)b * T + lob + i) * W;
     float a = 0.f;
-    for (int d = lane; d < Dh; d += 32) a = fmaf(__bfloat162float(kr[d]), qs[d], a);
-    a = warp_sum(a);
-    if (lane == 0) sc[i] = a;
+    if (KV8) {
+      const int8_t* kr = kc8 + row;
+      for (int d = lane; d < Dh; d += 32)
+        a = fmaf((float)kr[h * Dh + d], qs[d], a);
+      a = warp_sum(a);
+      if (lane == 0) sc[i] = a * ldexpf((float)kr[HD + h], (int)kr[HD + H + h]);
+    } else {
+      const __nv_bfloat16* kr = kcb + row + (size_t)h * Dh;
+      for (int d = lane; d < Dh; d += 32) a = fmaf(__bfloat162float(kr[d]), qs[d], a);
+      a = warp_sum(a);
+      if (lane == 0) sc[i] = a;
+    }
   }
   __syncthreads();
   float m = -1e30f;
@@ -256,17 +345,22 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   float l = 0.f;
   for (int i = tid; i < n; i += nthreads) {
     const float p = expf(sc[i] - m);
-    sc[i] = p;
     l += p;
+    if (KV8) {  // the value row's scale goes into p before its rounding
+      const int8_t* vr = vc8 + ((size_t)b * T + lob + i) * W;
+      sc[i] = bf16_round(p * ldexpf((float)vr[HD + h], (int)vr[HD + H + h]));
+    } else {
+      sc[i] = bf16_round(p);
+    }
   }
   l = block_reduce(l, red, false);  // its barriers also publish sc
 
   const int d = tid % Dh, slice = tid / Dh, nslices = nthreads / Dh;
   float a = 0.f;
   for (int i = slice; i < n; i += nslices) {
-    const float vv =
-        __bfloat162float(vc[((size_t)b * T + lob + i) * HD + (size_t)h * Dh + d]);
-    a = fmaf(bf16_round(sc[i]), vv, a);
+    const size_t row = ((size_t)b * T + lob + i) * W + (size_t)h * Dh + d;
+    const float vv = KV8 ? (float)vc8[row] : __bfloat162float(vcb[row]);
+    a = fmaf(sc[i], vv, a);
   }
   part[tid] = a;
   __syncthreads();
@@ -276,21 +370,51 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   }
 }
 
-template <int MODE, bool ADD>
-cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
-                        const __nv_bfloat16* W, float* out, int out_stride,
-                        int B, int K, int N, float eps, cudaStream_t st) {
+template <int MODE, bool ADD, int BR>
+cudaError_t launch_gemv_rows(const float* x, int x_stride, const float* lnw,
+                             const __nv_bfloat16* W, float* out,
+                             int out_stride, int B, int K, int N, float eps,
+                             cudaStream_t st) {
   const size_t smem = (size_t)B * K * sizeof(__nv_bfloat16);
   // the attribute is per device, so it is set before every such launch
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<MODE, ADD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        gemv_kernel<MODE, ADD, BR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int cols = kGemvWarps * kColsPerWarp;
-  gemv_kernel<MODE, ADD><<<(N + cols - 1) / cols, kGemvWarps * 32, smem, st>>>(
-      x, x_stride, lnw, W, out, out_stride, B, K, N, eps);
+  gemv_kernel<MODE, ADD, BR>
+      <<<(N + cols - 1) / cols, kGemvWarps * 32, smem, st>>>(
+          x, x_stride, lnw, W, out, out_stride, B, K, N, eps);
+  return cudaGetLastError();
+}
+
+template <int MODE, bool ADD>
+cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
+                        const __nv_bfloat16* W, float* out, int out_stride,
+                        int B, int K, int N, float eps, cudaStream_t st) {
+  if (B <= 16)
+    return launch_gemv_rows<MODE, ADD, 16>(x, x_stride, lnw, W, out,
+                                           out_stride, B, K, N, eps, st);
+  return launch_gemv_rows<MODE, ADD, 32>(x, x_stride, lnw, W, out, out_stride,
+                                         B, K, N, eps, st);
+}
+
+template <bool KV8>
+cudaError_t launch_attend(const float* qkv, const float* cosb,
+                          const float* sinb, void* kc, void* vc,
+                          const int* cur, const int* lo, float* o, int B,
+                          int T, int H, int Dh, float scale, cudaStream_t st) {
+  const size_t smem = (size_t)(3 * Dh + kAttnThreads + T) * sizeof(float);
+  if (smem > kDefaultSmem) {  // per device: set on every call
+    cudaError_t e = cudaFuncSetAttribute(
+        rope_append_attend_kernel<KV8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  rope_append_attend_kernel<KV8><<<dim3(H, B), kAttnThreads, smem, st>>>(
+      qkv, cosb, sinb, kc, vc, cur, lo, o, T, H, Dh, scale);
   return cudaGetLastError();
 }
 
@@ -303,16 +427,18 @@ extern "C" {
 // (B, 3*HD), o (B, HD), gu (B, 2*I) f32; weights wqkv (L, 3*HD, D),
 // wo (L, D, HD), wgu (L, 2*I, D), wd (L, D, I) bf16; ln1/ln2 (L, D) f32;
 // cos/sin (B, Dh) f32 at each row's rope position; caches kc/vc
-// (L, B, T, HD) bf16, written only at row `cur`; lo (B,) int32.
+// (L, B, T, HD) bf16 (kv8 == 0) or (L, B, T, HD + 128) int8 (kv8 == 1),
+// written only at row cur[b] of row b; cur and lo (B,) int32.
 // Returns the first CUDA error of any launch (0 on success).
-int k1_decode_step(void* x, void* qkv, void* o, void* gu, const void* wqkv,
-                   const void* wo, const void* wgu, const void* wd,
-                   const void* ln1, const void* ln2, const void* cosb,
-                   const void* sinb, void* kc, void* vc, const void* lo,
-                   int cur, int B, int D, int H, int Dh, int I, int L, int T,
-                   float eps, float scale, void* stream) {
+int decode_step_launch(void* x, void* qkv, void* o, void* gu,
+                       const void* wqkv, const void* wo, const void* wgu,
+                       const void* wd, const void* ln1, const void* ln2,
+                       const void* cosb, const void* sinb, void* kc, void* vc,
+                       const void* cur, const void* lo, int B, int D, int H,
+                       int Dh, int I, int L, int T, int kv8, float eps,
+                       float scale, void* stream) {
   if (B < 1 || B > kMaxB || D % 8 || I % 8 || (H * Dh) % 8 ||
-      kAttnThreads % Dh || cur < 0 || cur >= T)
+      kAttnThreads % Dh || T < 1 || (kv8 && 2 * H > kKvPad))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int HD = H * Dh;
@@ -326,28 +452,26 @@ int k1_decode_step(void* x, void* qkv, void* o, void* gu, const void* wqkv,
   const __nv_bfloat16* Wd = static_cast<const __nv_bfloat16*>(wd);
   const float* l1 = static_cast<const float*>(ln1);
   const float* l2 = static_cast<const float*>(ln2);
-  __nv_bfloat16* K = static_cast<__nv_bfloat16*>(kc);
-  __nv_bfloat16* V = static_cast<__nv_bfloat16*>(vc);
+  const float* cosf_ = static_cast<const float*>(cosb);
+  const float* sinf_ = static_cast<const float*>(sinb);
+  const int* curp = static_cast<const int*>(cur);
+  const int* lop = static_cast<const int*>(lo);
+  // bytes of one layer's cache
+  const size_t layer_bytes =
+      (size_t)B * T * (kv8 ? (size_t)(HD + kKvPad) : (size_t)HD * 2);
 
-  const size_t attn_smem = (size_t)(Dh + kAttnThreads + (cur + 1)) * sizeof(float);
-  if (attn_smem > kDefaultSmem) {  // per device: set on every call
-    cudaError_t e = cudaFuncSetAttribute(
-        rope_append_attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)attn_smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaError_t e;
   for (int l = 0; l < L; ++l) {
-    const size_t cache_off = (size_t)l * B * T * HD;
+    char* kl = static_cast<char*>(kc) + (size_t)l * layer_bytes;
+    char* vl = static_cast<char*>(vc) + (size_t)l * layer_bytes;
     e = launch_gemv<IN_RMS, false>(xf, D, l1 + (size_t)l * D,
                                    Wqkv + (size_t)l * 3 * HD * D, qkvf, 3 * HD,
                                    B, D, 3 * HD, eps, st);
     if (e != cudaSuccess) return (int)e;
-    rope_append_attend_kernel<<<dim3(H, B), kAttnThreads, attn_smem, st>>>(
-        qkvf, static_cast<const float*>(cosb), static_cast<const float*>(sinb),
-        K + cache_off, V + cache_off, static_cast<const int*>(lo), of, cur, T,
-        H, Dh, scale);
-    e = cudaGetLastError();
+    e = kv8 ? launch_attend<true>(qkvf, cosf_, sinf_, kl, vl, curp, lop, of, B,
+                                  T, H, Dh, scale, st)
+            : launch_attend<false>(qkvf, cosf_, sinf_, kl, vl, curp, lop, of,
+                                   B, T, H, Dh, scale, st);
     if (e != cudaSuccess) return (int)e;
     e = launch_gemv<IN_NONE, true>(of, HD, nullptr, Wo + (size_t)l * D * HD, xf,
                                    D, B, HD, D, eps, st);

@@ -2,21 +2,24 @@
 
 The JAX package runs its decode loop inside one jitted ``lax.while_loop``;
 here the loop is Python over steps, each step being the same sequence as
-the reference's ``step_body``: head -> sample -> embed -> K1 decode step
-(``ops/decode_step.py``) -> final ``rms_norm``.  Everything stays on the
+the reference's ``step_body``: head -> sample -> embed -> the decode step
+kernel (``ops/decode_step.py``: K3 on the default int8 KV cache, K1 with
+``kv_bits=0``) -> final ``rms_norm``.  Everything stays on the
 device; the host reads the all-finished flag every ``SYNC_EVERY`` steps
 (steps run after every row finished change no output: finished rows no
 longer count toward ``end_idx``).
 
-Only what the main path needs is ported: the scalar-``cur`` generator with
-a flat bf16 KV cache (L, B, T, HD), prompt bucketing, the repetition-penalty
-window, EOS handling and the ``ensure_non_empty`` retry.  Streaming,
-speculation and the per-slot engine are later slices.
+This is the scalar-``cur`` generator: a flat KV cache (L, B, T, W), int8
+rows with embedded scales by default as in the reference (quantized at the
+prefill -> decode boundary, ``ops/kv_quant.py``) or bf16, prompt bucketing,
+the repetition-penalty window, EOS handling and the ``ensure_non_empty``
+retry.  The per-slot engine is ``engine/batching.py``; streaming and
+speculation are later slices.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -27,6 +30,7 @@ from ..models import embed as embed_mod
 from ..models import llama
 from ..ops import decode_step as k1
 from ..ops import sampling
+from ..ops.kv_quant import kv8_quantize
 
 REP_WINDOW = 16  # trailing-token window of the repetition penalty
 SYNC_EVERY = 8   # decode steps between host reads of the finished flags
@@ -44,10 +48,14 @@ class GenerationOutputs:
     finished: np.ndarray        # (B,) bool
     hiddens_dev: Optional[torch.Tensor] = None
     end_dev: Optional[torch.Tensor] = None
-    steps: int = 0              # decode steps run (K1 launches)
+    steps: int = 0              # decode steps run (kernel launches)
+    # per-seq (Ti, D) host copies: only engine outputs whose hiddens were
+    # streamed to the host carry them
+    hiddens: List[np.ndarray] = field(default_factory=list)
 
     def destroy(self):
         self.ids = []
+        self.hiddens = []
         self.hiddens_dev = None
         self.end_dev = None
 
@@ -98,12 +106,21 @@ class Generator:
     """Bucketing, the step loop, retry and output trimming."""
 
     def __init__(self, cfg: GPTConfig, gpt_params: dict, embed_params: dict,
-                 prefill_bucket: int = 32):
+                 prefill_bucket: int = 32, kv_bits: int = 8,
+                 packed: Optional[dict] = None):
+        """``kv_bits``: 8 keeps the KV cache in int8 rows with embedded
+        scales (the default, as the reference's), 0 in bf16.  ``packed``:
+        the decode kernel's weight layout when it is shared with engines
+        of the same weights."""
+        if kv_bits not in (0, 8):
+            raise ValueError(f"kv_bits must be 8 or 0, not {kv_bits}")
         self.cfg = cfg
         self.gpt_params = gpt_params
         self.embed_params = embed_params
         self.prefill_bucket = prefill_bucket
-        self.packed = k1.pack_weights(gpt_params, cfg)
+        self.kv_bits = kv_bits
+        self.packed = (packed if packed is not None
+                       else k1.pack_weights(gpt_params, cfg))
         self.device = gpt_params["norm"].device
         self._rng_counter = 0
 
@@ -157,6 +174,8 @@ class Generator:
         HD = cfg.num_attention_heads * cfg.head_dim
         kc = torch.stack([c.reshape(B, Tbuf, HD) for c in cache.k])
         vc = torch.stack([c.reshape(B, Tbuf, HD) for c in cache.v])
+        if self.kv_bits:  # the prefill -> decode boundary
+            kc, vc = kv8_quantize(kc, cfg), kv8_quantize(vc, cfg)
         return hidden_all[:, -1], kc, vc, ids_t, attn_t
 
     def _run_once(self, req: GenerateRequest, context: Interrupt,

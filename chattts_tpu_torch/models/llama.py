@@ -9,8 +9,9 @@ two can be held against each other leaf by leaf:
 
 :func:`prefill` runs the prompt through every layer with torch ops (the
 reference's prefill is XLA, not a Pallas kernel).  :func:`decode_step` is the
-reference's XLA step (bf16 residual, masked full-length attention); the
-generator's decode step is K1 (``ops/decode_step.py``) instead.
+reference's XLA step (bf16 residual, masked full-length attention, one
+position or a position per row); the generator's and the engine's decode
+step is the kernel of ``ops/decode_step.py`` instead.
 """
 
 from __future__ import annotations
@@ -173,18 +174,22 @@ def prefill(params: dict, emb: torch.Tensor, attn_mask: torch.Tensor,
     return hidden, cache
 
 
-def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur: int,
+def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur,
                 key_valid: torch.Tensor, positions: torch.Tensor,
                 cfg: GPTConfig, dtype=torch.bfloat16):
-    """One AR step, scalar ``cur``: writes k/v at row ``cur`` in place, then
-    attends over the rows ``key_valid`` marks within [0, cur].  Returns
+    """One AR step: writes k/v at row ``cur`` in place, then attends over
+    the rows ``key_valid`` marks within [0, cur].  ``cur`` is one position
+    (all sequences at the same depth) or a (B,) tensor (continuous batching:
+    a position per row, the writes become per-row scatters).  Returns
     (hidden (B, D) f32, cache)."""
     cos_t, sin_t = rope_tables_torch(cfg, emb.device)
     cos = cos_t[positions][:, None, :]  # (B, 1, Dh)
     sin = sin_t[positions][:, None, :]
-    Tmax = cache.k[0].shape[1]
+    B, Tmax = emb.shape[0], cache.k[0].shape[1]
     slots = torch.arange(Tmax, device=emb.device)
-    ok = key_valid & (slots[None, :] <= cur)
+    rows = torch.arange(B, device=emb.device)
+    cur = torch.as_tensor(cur, device=emb.device).expand(B)
+    ok = key_valid & (slots[None, :] <= cur[:, None])
     bias = torch.where(ok, 0.0, _MASK_VALUE).to(torch.float32)[:, None, None, :]
     x = emb[:, None, :].to(dtype)  # (B, 1, D)
     eps = cfg.rms_norm_eps
@@ -193,8 +198,8 @@ def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur: int,
         q, k, v = _qkv(lp["attn"], h)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        cache.k[li][:, cur] = k[:, 0].to(cache.k[li].dtype)
-        cache.v[li][:, cur] = v[:, 0].to(cache.v[li].dtype)
+        cache.k[li][rows, cur] = k[:, 0].to(cache.k[li].dtype)
+        cache.v[li][rows, cur] = v[:, 0].to(cache.v[li].dtype)
         o = _attend(q, cache.k[li], cache.v[li], bias, cfg.head_dim, dtype)
         x = x + o @ lp["attn"]["wo"]
         h = rms_norm(x, lp["ln2"], eps)

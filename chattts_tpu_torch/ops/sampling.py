@@ -9,28 +9,43 @@ ascending sort whose ties break by column index, as ``lax.sort`` over
 
 ``jax.random.categorical(key, logits)`` is ``argmax(logits + gumbel(key))``,
 so a test that hands :func:`sample` the Gumbel noise JAX drew gets the same
-token.  In production the noise comes from a ``torch.Generator``.
+token.  In production the noise comes from a ``torch.Generator``
+(Generator) or from ``ops/threefry.py`` (the engine's per-row noise).
+
+Every knob but the temperature is a scalar (one generation call) or an (N,)
+tensor (continuous batching: each row carries its own); ``step`` and
+``eos_token`` likewise.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
+Rows = Union[int, float, torch.Tensor]  # a scalar, or one value per row
+
 
 class SamplingParams(NamedTuple):
-    """Sampling knobs of one generation call."""
+    """Sampling knobs: scalars for one call, or (N,) tensors per row."""
 
-    temperature: torch.Tensor  # (num_streams,) f32, tiled over the rows
-    top_p: float
-    top_k: int
-    repetition_penalty: float
-    min_new: int
+    temperature: torch.Tensor  # (num_streams,) or (N,) f32, tiled over rows
+    top_p: Rows
+    top_k: Rows
+    repetition_penalty: Rows  # 1.0 disables
+    min_new: Rows             # EOS is suppressed while step < min_new
+
+
+def _per_row(v: Rows, N: int, dtype, device) -> torch.Tensor:
+    """A scalar or (N,) value as an (N,) tensor on ``device`` (no host
+    read, no host-to-device copy for a Python scalar)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype).expand(N)
+    return torch.full((N,), v, dtype=dtype, device=device)
 
 
 def repetition_penalty(scores: torch.Tensor, window_ids: torch.Tensor,
-                       window_mask: torch.Tensor, penalty: float,
+                       window_mask: torch.Tensor, penalty: Rows,
                        max_penalized: int) -> torch.Tensor:
     """Scale negative scores by ``penalty**freq`` and divide positive ones,
     freq counting each column in the valid window; columns >= max_penalized
@@ -41,8 +56,8 @@ def repetition_penalty(scores: torch.Tensor, window_ids: torch.Tensor,
     freq.scatter_add_(1, ids, window_mask.to(torch.float32))
     if max_penalized < V:
         freq[:, max_penalized:] = 0.0
-    alpha = torch.pow(torch.tensor(penalty, dtype=torch.float32,
-                                   device=scores.device), freq)
+    pen = _per_row(penalty, N, torch.float32, scores.device)
+    alpha = torch.pow(pen[:, None], freq)
     return torch.where(scores < 0, scores * alpha, scores / alpha)
 
 
@@ -54,21 +69,24 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def sample(logits: torch.Tensor, params: SamplingParams,
-           window_ids: torch.Tensor, window_mask: torch.Tensor, step: int,
-           eos_token: int, max_penalized: int,
+           window_ids: torch.Tensor, window_mask: torch.Tensor, step: Rows,
+           eos_token: Rows, max_penalized: int,
            noise: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Full sampling chain over logits (N, V) f32; returns ids (N,) int64.
 
-    ``noise`` (N, V) is the Gumbel noise of the draw; without it the noise
-    is drawn from ``generator``.
+    ``noise`` (N, V) is the Gumbel noise of the draw, row by row; without
+    it the noise is drawn from ``generator``.  ``step`` and ``eos_token``
+    are scalars or (N,) tensors, as the parameters are.
     """
     N, V = logits.shape
     temp = params.temperature.to(logits.device, torch.float32)
     if temp.shape[0] != N:  # per-codebook temperatures tiled over the batch
         temp = temp.repeat(N // temp.shape[0])
     scores = logits / temp[:, None]
-    if params.repetition_penalty != 1.0:
+    rp = params.repetition_penalty
+    # per-row penalties always apply (a row with 1.0 is left as it is)
+    if isinstance(rp, torch.Tensor) or rp != 1.0:
         scores = repetition_penalty(scores, window_ids, window_mask,
                                     params.repetition_penalty, max_penalized)
 
@@ -80,16 +98,19 @@ def sample(logits: torch.Tensor, params: SamplingParams,
     # always keeping the 3 largest
     cum = torch.cumsum(torch.softmax(s_asc, dim=-1), dim=-1)
     # 1 - p in f32, as the reference computes it
-    one = torch.ones((), dtype=torch.float32, device=logits.device)
-    thr = one - torch.tensor(params.top_p, dtype=torch.float32,
-                             device=logits.device)
+    dev = logits.device
+    thr = 1.0 - _per_row(params.top_p, N, torch.float32, dev)[:, None]
     s_asc = torch.where((cum <= thr) & (pos < V - 3), neg_inf, s_asc)
     # top-k: strictly below the k-th largest goes (min_keep 3)
-    k = min(max(params.top_k, 3), V)
-    s_asc = torch.where(s_asc < s_asc[:, V - k:V - k + 1], neg_inf, s_asc)
+    k = _per_row(params.top_k, N, torch.long, dev).clamp(3, V)
+    s_asc = torch.where(s_asc < s_asc.gather(1, (V - k)[:, None]), neg_inf,
+                        s_asc)
     # EOS suppression while step < min_new, found by its sorted position
-    if step < params.min_new:
-        s_asc = torch.where(order == eos_token, neg_inf, s_asc)
+    eos_sup = (_per_row(step, N, torch.long, dev)
+               < _per_row(params.min_new, N, torch.long, dev))
+    eos_rows = _per_row(eos_token, N, torch.long, dev)
+    s_asc = torch.where(eos_sup[:, None] & (order == eos_rows[:, None]),
+                        neg_inf, s_asc)
 
     if noise is None:
         noise = gumbel((N, V), generator, logits.device)

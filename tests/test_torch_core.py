@@ -15,7 +15,18 @@ port's sampler is handed them step by step.  Then
   FFT.  After the strip they are not compared sample by sample: a sample
   near the threshold that one side drops and the other keeps shifts every
   later sample.  The port's output is held to its own strip instead.
+
+The engine route (``use_engine=True``) is held to the Generator route's
+shapes and to the reference's tier routing.  ``kv_bits=0`` is held to the
+results the bf16-cache Generator gave before the int8 cache became the
+default: the integer ids of both passes of a seeded run, as CRC-32s recorded
+from that tree on the CPU.  Its waveforms are float32 and follow the BLAS
+build, so they are held (atol 1e-5 of the peak, before the strip) to a
+second facade that is given the same weights through ``load_params``.
 """
+
+import zlib
+
 
 import numpy as np
 import pytest
@@ -162,3 +173,148 @@ def test_speaker_embedding_conditions_the_code_pass(chats):
     wavs = tchat.infer("hi", split_text=False, skip_refine_text=True,
                        params_infer_code=code)
     assert len(wavs) == 1 and np.isfinite(wavs[0]).all()
+
+
+# ---------------------------------------------------------------------------
+# the engine route and the KV cache tiers
+# ---------------------------------------------------------------------------
+
+
+def _port_chat(tiny_config, **kw):
+    chat = TChat(config=port_config(tiny_config))
+    chat.load(source="random", seed=0, device="cpu", **kw)
+    return chat
+
+
+def _infer(chat):
+    return chat.infer(TEXTS, split_text=False,
+                      params_refine_text=_params(TChat)[0],
+                      params_infer_code=_params(TChat)[1])
+
+
+def test_kv_bits_0_reproduces_the_bf16_generator_bit_for_bit(tiny_config):
+    chat = _port_chat(tiny_config, kv_bits=0)
+    log, raw = [], []
+    _record(chat.generator, log)
+    _record_wavs(chat, raw)
+    wavs = _infer(chat)
+
+    def crc(a):
+        return zlib.crc32(np.ascontiguousarray(a.astype(np.int64)).tobytes())
+
+    (_, refine_ids), (_, code_ids) = log
+    assert [(i.shape, crc(i)) for i in refine_ids] == [
+        ((8,), 1369787028), ((8,), 112212425)]
+    assert [(i.shape, crc(i)) for i in code_ids] == [
+        ((16, 4), 3554064973), ((16, 4), 2832529802)]
+
+    # the same weights in a second facade, which builds its own generator
+    twin = TChat(config=chat.config)
+    twin.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
+                     decoder=chat.decoder_params, vocos=chat.vocos_params,
+                     device="cpu", kv_bits=0)
+    assert twin.generator is not chat.generator and twin.kv_bits == 0
+    twin_log, twin_raw = [], []
+    _record(twin.generator, twin_log)
+    _record_wavs(twin, twin_raw)
+    _infer(twin)
+    for (_, ids), (_, twin_ids) in zip(log, twin_log):
+        for a, b in zip(ids, twin_ids):
+            np.testing.assert_array_equal(a, b)
+    (got,), (want,) = raw, twin_raw
+    assert got.shape == want.shape and got.shape[0] == len(TEXTS)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+    assert len(wavs) == len(TEXTS)
+    assert all(w.size > 0 and np.isfinite(w).all() for w in wavs)
+
+
+def test_kv_bits_default_is_the_int8_cache(tiny_config, monkeypatch):
+    from chattts_tpu_torch.ops import decode_step as ds
+
+    chat = _port_chat(tiny_config)
+    assert chat.kv_bits == 8 and chat.generator.kv_bits == 8
+    seen = []
+    real = ds.decode_step
+
+    def spy(packed, emb, kc, vc, cur, *rest):
+        seen.append((kc.dtype, ds.variant_of(kc, cur)))
+        return real(packed, emb, kc, vc, cur, *rest)
+
+    monkeypatch.setattr(tg.k1, "decode_step", spy)
+    wavs = _infer(chat)
+    assert len(wavs) == 2 and all(np.isfinite(w).all() for w in wavs)
+    assert seen and set(seen) == {(torch.int8, "k3")}
+    with pytest.raises(ValueError, match="kv_bits"):
+        _port_chat(tiny_config, kv_bits=4)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 0])
+def test_use_engine_infer_matches_generator_route_shapes(tiny_config,
+                                                         monkeypatch, kv_bits):
+    from chattts_tpu_torch.engine import batching as tb
+    from chattts_tpu_torch.ops import decode_step as ds
+
+    plain = _infer(_port_chat(tiny_config, kv_bits=kv_bits))
+    chat = _port_chat(tiny_config, use_engine=True, kv_bits=kv_bits)
+    seen = set()
+    real = ds.decode_step
+
+    def spy(packed, emb, kc, vc, cur, *rest):
+        seen.add(ds.variant_of(kc, cur))
+        return real(packed, emb, kc, vc, cur, *rest)
+
+    monkeypatch.setattr(tb.step_mod, "decode_step", spy)
+    monkeypatch.setattr(chat.generator, "generate", None)  # must not be used
+    wavs = _infer(chat)
+    assert seen == {"k2k3" if kv_bits else "k2"}
+    assert len(wavs) == len(plain) == len(TEXTS)
+    for w, p in zip(wavs, plain):
+        assert w.dtype == p.dtype == np.float32 and w.ndim == 1
+        assert w.size > 0 and np.isfinite(w).all()
+        # both routes keep 4..16 code steps of 512 samples before the strip
+        assert 0.2 * p.size <= w.size <= 5 * p.size
+    # both passes ran on engines that share the generator's packed weights
+    assert chat._text_engine is not None and list(chat._code_engines) == ["fast"]
+    eng = chat._code_engines["fast"]
+    assert eng.packed is chat.packed is chat.generator.packed
+    assert eng.stats["requests_finished"] == len(TEXTS)
+    # a seeded request returns the same audio again, and the text alone too
+    again = _infer(chat)
+    for a, b in zip(wavs, again):
+        np.testing.assert_array_equal(a, b)
+    txt = chat.infer(TEXTS, split_text=False, refine_text_only=True,
+                     params_refine_text=_params(TChat)[0])
+    assert isinstance(txt, list) and len(txt) == 2
+    with pytest.raises(NotImplementedError, match="streaming"):
+        chat.infer("hi", stream=True)
+
+
+def test_code_tier_routing(tiny_config):
+    """``_code_tier_for`` as chattts_tpu/core.py routes: by width and prompt
+    length, never by max_new alone; wide only with the int8 cache."""
+    from chattts_tpu.core import Chat as JChat
+
+    chat = _port_chat(tiny_config)
+    bf16 = _port_chat(tiny_config, kv_bits=0)
+    jchat = JChat(config=tiny_config)
+    for tier in ("fast", "capacity", "wide"):
+        g, r = chat._code_engine_geometry(tier), jchat._code_engine_geometry(tier)
+        for f in ("max_num_seqs", "max_prompt_len", "max_new_tokens",
+                  "chunk_steps", "prompt_buckets", "preempt_after_chunks",
+                  "max_stream_slots", "collect_hidden", "infer_text"):
+            assert getattr(g, f) == getattr(r, f), (tier, f)
+    max_new = chat._code_engine_geometry("fast").max_new_tokens
+    assert chat._code_tier_for(4, max_new, 40) == "fast"
+    assert chat._code_tier_for(8, max_new, 256) == "fast"
+    assert chat._code_tier_for(8, max_new, 300) == "capacity"  # long prompt
+    assert chat._code_tier_for(9, 16, 40) == "capacity"        # too wide
+    assert chat._code_tier_for(16, max_new, 40) == "capacity"
+    assert chat._code_tier_for(17, max_new, 40) == "wide"
+    assert chat._code_tier_for(64, 16, 200) == "wide"
+    # past every tier's prompt buckets (256 here: 512 positions less 256 new)
+    assert chat._code_tier_for(64, 16, 500) == "capacity"
+    assert chat._code_tier_for(4, max_new + 1, 40) == "capacity"
+    # the bf16 cache has no 32-slot tier: it time-slices on 16 slots
+    assert bf16._code_tier_for(17, max_new, 40) == "capacity"
+    assert bf16._engine_for_code("wide").ecfg.max_num_seqs == 16
+    assert chat._engine_for_code("wide").ecfg.max_num_seqs == 32

@@ -1,4 +1,5 @@
-"""K1's CUDA kernel against its plain PyTorch version, on the card.
+"""The decode step's CUDA kernel (K1, K2, K3, K2+K3) against its plain
+PyTorch version, on the card.
 
 These tests need a CUDA device and the CUDA toolkit; without a device they
 skip.  They import neither JAX nor the JAX package, so on a machine that has
@@ -11,7 +12,12 @@ matmul inputs, f32 sums), but the kernel sums in another order, so an
 intermediate can land one bf16 ulp apart and carry through the layers: the
 final-norm hidden (O(1)) is held to atol 0.05, the appended cache row to
 two bf16 ulps (atol and rtol 0.02), and every other cache row must be
-bit-unchanged.
+bit-unchanged.  An appended kv8 row is compared as bytes: layer 0's scale
+bytes equal; at most 1% of layer 0's value bytes and 10% of all layers' may
+differ (deeper layers quantize a residual that drifted within the hidden's
+tolerance), every dequantized value within one quantization step, two where
+the drift moved the head's scale.  A row's result must not depend on the
+batch it ran in, bit for bit.
 """
 
 import pytest
@@ -20,6 +26,7 @@ import torch
 from chattts_tpu_torch.config import GPTConfig
 from chattts_tpu_torch.models import llama
 from chattts_tpu_torch.ops import decode_step as k1
+from chattts_tpu_torch.ops import kv_quant
 from chattts_tpu_torch.weights import to_device
 
 HIDDEN_ATOL = 0.05
@@ -81,6 +88,153 @@ def test_kernel_matches_plain(cuda, geom, B, cur):
                                    rtol=ROW_TOL)
         assert torch.equal(got[:, :, :cur], base[:, :, :cur])
         assert torch.equal(got[:, :, cur + 1:], base[:, :, cur + 1:])
+
+
+def _variant_inputs(cfg, B, T, dev, variant, seed=0):
+    """Inputs of one variant: kv8 caches for k3, ragged positions for k2
+    (row 0 sees one key, row 1 writes the last cache row)."""
+    params, packed, kc, vc, emb = _inputs(cfg, B, T, dev, seed)
+    if "k3" in variant:
+        kc = kv_quant.kv8_quantize(kc, cfg)
+        vc = kv_quant.kv8_quantize(vc, cfg)
+    gen = torch.Generator().manual_seed(seed + 1)
+    if "k2" in variant:
+        cur = torch.randint(1, T, (B,), generator=gen)
+        cur[0] = 7
+        cur[min(1, B - 1)] = T - 1
+        lo = torch.randint(0, T, (B,), generator=gen) % (cur + 1)
+        lo[0] = cur[0]
+        cur_arg = cur.to(dev)
+    else:
+        cur = torch.full((B,), 11)
+        lo = torch.randint(0, 12, (B,), generator=gen)
+        cur_arg = 11
+    return params, packed, kc, vc, emb, cur_arg, cur.to(dev), lo.to(dev)
+
+
+def _check_rows(got, ref, base, cur, cfg):
+    """Row (b, cur_b) of every layer against the plain version's, all other
+    rows against the input."""
+    H = cfg.num_attention_heads
+    HD = H * cfg.head_dim
+    B = got.shape[1]
+    rows = torch.arange(B, device=got.device)
+    keep = torch.ones(got.shape[:3], dtype=torch.bool, device=got.device)
+    keep[:, rows, cur] = False
+    assert torch.equal(got[keep], base[keep])
+    g, r = got[:, rows, cur], ref[:, rows, cur]      # (L, B, W)
+    if got.dtype != torch.int8:
+        torch.testing.assert_close(g.float(), r.float(), atol=ROW_TOL,
+                                   rtol=ROW_TOL)
+        return
+    assert torch.equal(g[0, :, HD:], r[0, :, HD:])
+    assert not g[..., HD + 2 * H:].any()
+    sg, sr = kv_quant.row_scales(g, cfg), kv_quant.row_scales(r, cfg)
+    assert bool(((sg - sr).abs() <= sr / 64 * (1 + 1e-6)).all())
+    step = torch.where(sg == sr, sr, 2 * torch.maximum(sg, sr))
+    err = (kv_quant.kv8_dequantize(g, cfg)
+           - kv_quant.kv8_dequantize(r, cfg)).abs()
+    err = err.reshape(err.shape[:-1] + (H, -1))
+    assert bool((err <= step[..., None] * (1 + 1e-6)).all())
+    differ = g[..., :HD] != r[..., :HD]
+    assert int(differ[0].sum()) <= 0.01 * differ[0].numel()
+    assert int(differ.sum()) <= 0.10 * differ.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES))
+@pytest.mark.parametrize("variant", ["k2", "k3", "k2k3"])
+@pytest.mark.parametrize("B", [1, 3, 16, 32])
+def test_variant_matches_plain(cuda, geom, variant, B):
+    cfg = GEOMETRIES[geom]
+    T = 64
+    params, packed, kc, vc, emb, cur_arg, cur, lo = _variant_inputs(
+        cfg, B, T, cuda, variant)
+    pos = cur - lo
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = dict(k1.decode_step.variant_launches)
+    xk = k1.decode_step(packed, emb, kk, vk, cur_arg, lo, pos, cfg)
+    torch.cuda.synchronize()
+    after = k1.decode_step.variant_launches
+    assert after[variant] == before[variant] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    xp = k1.decode_step_plain(packed, emb, kp, vp, cur_arg, lo, pos, cfg)
+    hk = llama.rms_norm(xk, params["norm"], cfg.rms_norm_eps)
+    hp = llama.rms_norm(xp, params["norm"], cfg.rms_norm_eps)
+    assert torch.isfinite(hk).all()
+    torch.testing.assert_close(hk, hp, atol=HIDDEN_ATOL, rtol=0)
+    _check_rows(kk, kp, kc, cur, cfg)
+    _check_rows(vk, vp, vc, cur, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["k1", "k2", "k3", "k2k3"])
+def test_row_result_does_not_depend_on_the_batch(cuda, variant):
+    """Rows of a 32-row launch equal the same rows launched alone and in a
+    batch of 16 (another gemv instantiation), bit for bit."""
+    cfg = GEOMETRIES["small"]
+    T = 64
+    _, packed, kc, vc, emb, cur_arg, cur, lo = _variant_inputs(
+        cfg, 32, T, cuda, variant)
+    pos = cur - lo
+
+    def run(sl):
+        k, v = kc[:, sl].contiguous(), vc[:, sl].contiguous()
+        c = cur_arg[sl] if isinstance(cur_arg, torch.Tensor) else cur_arg
+        x = k1.decode_step(packed, emb[sl], k, v, c, lo[sl], pos[sl], cfg)
+        torch.cuda.synchronize()
+        return x, k, v
+
+    x32, k32, v32 = run(slice(0, 32))
+    for sl in (slice(0, 1), slice(17, 18), slice(31, 32), slice(8, 24)):
+        x, k, v = run(sl)
+        assert torch.equal(x, x32[sl])
+        assert torch.equal(k, k32[:, sl]) and torch.equal(v, v32[:, sl])
+
+
+@pytest.mark.gpu
+def test_out_of_range_device_position_poisons_its_row_only(cuda):
+    """A position the host cannot see is not clamped: the row turns NaN, the
+    other rows and the cache stay as they were."""
+    cfg = GEOMETRIES["small"]
+    _, packed, kc, vc, emb, _, cur, lo = _variant_inputs(cfg, 3, 64, cuda,
+                                                        "k2k3")
+    cur = cur.clone()
+    cur[2] = 64
+    kk, vk = kc.clone(), vc.clone()
+    x = k1.decode_step(packed, emb, kk, vk, cur, lo, cur - lo, cfg)
+    torch.cuda.synchronize()
+    assert torch.isnan(x[2]).all() and torch.isfinite(x[:2]).all()
+    assert torch.equal(kk[:, 2], kc[:, 2]) and torch.equal(vk[:, 2], vc[:, 2])
+
+
+@pytest.mark.gpu
+def test_variant_wrapper_errors(cuda):
+    cfg = GEOMETRIES["small"]
+    HD = cfg.num_attention_heads * cfg.head_dim
+    _, packed, kc, vc, emb = _inputs(cfg, 2, 16, cuda)
+    lo = torch.zeros(2, dtype=torch.long, device=cuda)
+    k8 = kv_quant.kv8_quantize(kc, cfg)
+    with pytest.raises(ValueError, match="caches"):   # wrong width
+        k1.decode_step(packed, emb, k8[..., :HD + 64].contiguous(),
+                       k8[..., :HD + 64].contiguous(), 3, lo, lo, cfg)
+    with pytest.raises(ValueError, match="caches"):   # wrong type
+        k1.decode_step(packed, emb, k8.to(torch.int16), k8.to(torch.int16),
+                       3, lo, lo, cfg)
+    with pytest.raises(ValueError, match="differ"):   # mixed tiers
+        k1.decode_step(packed, emb, k8, vc, 3, lo, lo, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros((kc.shape[0], 2, 32, HD + kv_quant.KV_PAD),
+                           dtype=torch.int8, device=cuda)
+        k1.decode_step(packed, emb, wide[:, :, ::2], wide[:, :, ::2], 3, lo,
+                       lo, cfg)
+    with pytest.raises(ValueError, match="cur must be"):
+        k1.decode_step(packed, emb, k8, k8.clone(), torch.zeros(
+            3, dtype=torch.long, device=cuda), lo, lo, cfg)
+    _, packed33, kc33, vc33, emb33 = _inputs(cfg, 33, 16, cuda)
+    lo33 = torch.zeros(33, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="1 to 32 rows"):
+        k1.decode_step(packed33, emb33, kc33, vc33, 3, lo33, lo33, cfg)
 
 
 @pytest.mark.gpu
