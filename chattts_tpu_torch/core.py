@@ -8,7 +8,9 @@ decoder and Vocos turn into 24 kHz audio in one shot (the reference's
 Generator, or with ``use_engine=True`` the continuous-batching Engine
 (``engine/batching.py``), whose slots concurrent callers share; either way
 every decode step is the hand-written kernel of ``ops/decode_step.py`` on
-CUDA, on the int8 KV cache unless ``kv_bits=0`` asks for bf16.
+CUDA, on the int8 KV cache unless ``kv_bits=0`` asks for bf16 or
+``kv_bits=4`` for int4 rows, with bf16 weights unless ``weight_bits=8`` or
+``4`` asks for the quantized tiers.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed to :meth:`load`
 or :meth:`load_params`.  Streaming, voice cloning and the
@@ -61,7 +63,8 @@ class Chat:
 
     def load(self, source: Literal["random"] = "random", seed: int = 0,
              device=None, coef: Optional[str] = None,
-             use_engine: bool = False, kv_bits: int = 8) -> bool:
+             use_engine: bool = False, weight_bits: int = 0,
+             kv_bits: int = 8) -> bool:
         """Seeded random weights (the only source so far).
 
         Weights are drawn on the CPU from a ``torch.Generator`` seeded with
@@ -72,8 +75,14 @@ class Chat:
         through the continuous-batching engine (the reference's
         ``load(use_engine=True)``): per-request ``manual_seed``,
         ``ensure_non_empty`` and interrupt keep the generator path's meaning.
+        ``weight_bits``: the decode step's weights, 0 bf16 (the default), 8
+        int8 with a scale per output column, 4 int4 with a scale per
+        128-row group and column (the reference's ``CHATTTS_STEP_INT8`` and
+        ``CHATTTS_STEP_INT4``; one value is passed, so neither wins).
         ``kv_bits``: 8 keeps the KV cache in int8 rows with embedded scales
-        (the reference's default), 0 in bf16.
+        (the reference's default), 4 in nibble-packed rows with the same
+        scales (its ``CHATTTS_KV_INT4``; engines then take up to 64 slots),
+        0 in bf16.
         """
         if source != "random":
             raise NotImplementedError(
@@ -88,16 +97,19 @@ class Chat:
             embed=embed_mod.init_params(gen, cfg.gpt),
             decoder=dvae_mod.init_decoder_params(gen, cfg.decoder, coef_arr),
             vocos=vocos_mod.init_params(gen, cfg.vocos),
-            device=dev, use_engine=use_engine, kv_bits=kv_bits)
+            device=dev, use_engine=use_engine, weight_bits=weight_bits,
+            kv_bits=kv_bits)
         return True
 
     def load_params(self, gpt: dict, embed: dict, decoder: dict, vocos: dict,
                     device=None, use_engine: bool = False,
-                    kv_bits: int = 8) -> "Chat":
+                    weight_bits: int = 0, kv_bits: int = 8) -> "Chat":
         """Load parameter trees in the JAX package's layouts (numpy arrays
-        or tensors, e.g. bridged with ``weights.from_numpy``)."""
+        or tensors, e.g. bridged with ``weights.from_numpy``);
+        ``weight_bits`` and ``kv_bits`` as in :meth:`load`."""
         cfg = self.config
         self.use_engine = use_engine
+        self.weight_bits = weight_bits
         self.kv_bits = kv_bits
         self._code_engines = {}
         self._text_engine = None
@@ -109,15 +121,30 @@ class Chat:
         self.tokenizer = Tokenizer(None, vocab_size=cfg.gpt.num_text_tokens)
         self.speaker = Speaker(cfg.gpt.hidden_size, load_spk_stat_string())
         self.coef = dvae_mod.coef_string(self.decoder_params)
-        # one packed copy of the decoder weights serves the generator and
-        # every engine tier
-        self.packed = pack_weights(self.gpt_params, cfg.gpt)
+        self.packed = self._step_weights()
         self.generator = Generator(
             cfg.gpt, self.gpt_params, self.embed_params,
             prefill_bucket=cfg.runtime.prefill_bucket, kv_bits=kv_bits,
             packed=self.packed)
         self._loaded = True
         return self
+
+    def _step_weights(self) -> dict:
+        """One packed copy of the decoder weights (``ops/decode_step.py``)
+        for the generator and every engine tier.  Kept across loads and
+        packed anew when the weight tier or a parameter tensor changed (a
+        stale copy would decode with the previous load's weights)."""
+        leaves = [t for lp in self.gpt_params["layers"]
+                  for t in (lp["attn"]["wqkv"], lp["attn"]["wo"],
+                            lp["mlp"]["wgu"], lp["mlp"]["down"], lp["ln1"],
+                            lp["ln2"])]
+        kept = getattr(self, "_pack_cache", None)
+        if (kept is None or kept[0] != self.weight_bits
+                or len(kept[1]) != len(leaves)
+                or any(a is not b for a, b in zip(kept[1], leaves))):
+            self._pack_cache = (self.weight_bits, leaves, pack_weights(
+                self.gpt_params, self.config.gpt, self.weight_bits))
+        return self._pack_cache[2]
 
     def interrupt(self):
         self.context.set(True)
@@ -356,7 +383,7 @@ class Chat:
         * ``"capacity"``: 16 slots, the concurrent serving tier; device-
           streaming slots are capped at 14 so queued work stays preemptable.
         * ``"wide"``: 32 slots for saturated offline work; exists only with
-          the int8 KV cache.
+          a quantized KV cache.
 
         Prompt capacity is sized from the position-embedding budget.
         """
@@ -387,7 +414,7 @@ class Chat:
 
         if tier == "wide" and batching.fused_slot_limit(self.kv_bits) < 32:
             self.logger.warning(
-                "the wide tier needs the int8 KV cache; falling back to "
+                "the wide tier needs a quantized KV cache; falling back to "
                 "capacity")
             tier = "capacity"
         if tier not in self._code_engines:
@@ -404,7 +431,8 @@ class Chat:
         by batch width and prompt length; ``max_new`` is only a capacity
         check (the default ceiling says nothing about how long a request
         that ends on EOS runs).  Batches wider than the 16-slot tier go to
-        the 32-slot tier when the KV cache is int8.  Builds no engine."""
+        the 32-slot tier when the KV cache is quantized.  Builds no
+        engine."""
         from .engine import batching
 
         fast = self._code_engine_geometry("fast")

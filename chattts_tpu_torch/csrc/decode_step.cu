@@ -1,13 +1,17 @@
-// One whole autoregressive decode step (all L layers) for the Llama decoder
-// with bf16 weights.  Replaces the Pallas TPU kernel
-// chattts_tpu/ops/pallas_step.py::_kernel in four of its variants:
+// One whole autoregressive decode step (all L layers) for the Llama decoder.
+// Replaces the Pallas TPU kernel chattts_tpu/ops/pallas_step.py::_kernel in
+// all of its variants:
 //   K1    bf16 KV cache, one shared write position `cur`
 //   K2    bf16 KV cache, a write position per row (continuous batching)
-//   K3    int8 KV cache with embedded per-(token, head) scales, shared `cur`
-//   K2+K3 int8 KV cache, a write position per row
-// `cur` is always a device array of B positions (a shared position is the
-// array with equal entries), so no launch depends on a host copy of it; the
-// cache type is a template parameter of the attention kernel.  Per layer:
+//   K3    int8 KV cache with embedded per-(token, head) scales
+//   K4    int8 weights, a scale per (D-row contraction group, output column)
+//   K5    int4 weights, two a byte, a scale per (128-row group, column)
+//   K6    int4 KV cache: kv8's scales, two values a byte
+// and their combinations.  `cur` is always a device array of B positions (a
+// shared position is the array with equal entries), so no launch depends on
+// a host copy of it.  The weight tier is a template parameter of the gemv
+// and the cache tier one of the attention kernel: neither touches the
+// other, so 3 x 3 instantiations give every combination.  Per layer:
 //   h = rms(x)*ln1 ; q,k,v = h@Wqkv ; rope(q), rope(k) ;
 //   cache[l, :, cur] = k, v ; o = softmax(q.K[lo..cur]/sqrt(Dh)) V[lo..cur] ;
 //   x += o@Wo ; x += (silu(h2@Wg) * (h2@Wu)) @ Wd  with h2 = rms(x)*ln2
@@ -23,23 +27,43 @@
 // bf16 against bf16(q*scale), scales each score by its key's m*2^e after
 // the sum, and folds each value row's m*2^e into p before p's bf16 rounding.
 //
+// The int4 cache row is [p(HD/2) | m(H) | e(H) | zeros], HD/2 + 128 bytes:
+// feature f < HD/2 in the low nibble of byte f, feature HD/2 + f in its high
+// nibble, scales from absmax / 7.  Two heads share every byte there, so the
+// append is a launch of its own, one block per row, before the attention
+// kernel (which for this tier only ropes q and attends): no two blocks
+// write one byte, and nothing rests on an order between blocks.
+//
+// Quantized weights are (N, K) int8, or (N, K/2) bytes with weight 2j in
+// the low nibble of byte j and 2j + 1 in the high one, beside f32 scales
+// (N, K/group).  The integers widen to f32 exactly; a lane multiplies its
+// run of 8 weights (which never straddles a group: group % 8 == 0) with the
+// bf16 inputs into an f32 partial sum and adds partial * scale[group] to
+// its total, so the scale multiplies a sum, never a weight.
+//
 // A row's result depends on that row's inputs only, never on B or on the
 // other rows: every sum runs in an order fixed by the row's own shapes.
+// Above 32 rows the gemv runs over row halves (grid.y): a block keeps at
+// most 32 bf16 input rows in shared memory (196 KB at K 3072), and the
+// weights are read once per half, the second time mostly from L2.
 //
 // Bound on an H100: the step streams every weight once,
-// L*(4*D*D + 3*D*I)*2 bytes (377 MB at D 768, I 3072, L 20: ~113 us at
-// 3.35 TB/s), plus 2*L*sum_b(cur_b-lo_b+1)*W bytes of KV reads and 2*L*B*W
-// of appended rows, W = 2*HD (bf16) or HD+128 (int8).  Its arithmetic
+// L*(4*D*D + 3*D*I) of them at 2, 1 or 1/2 bytes (377, 189 or 94 MB at
+// D 768, I 3072, L 20: ~113, ~57 or ~28 us at 3.35 TB/s) and their scales,
+// plus 2*L*sum_b(cur_b-lo_b+1)*W bytes of KV reads and 2*L*B*W of appended
+// rows, W = 2*HD (bf16), HD+128 (int8) or HD/2+128 (int4).  Its arithmetic
 // intensity is ~B flop/byte, far below the ~295 the tensor cores need, so
 // it is bound by bytes.  The design therefore reads each weight byte once
 // per step: `gemv` gives every block a tile of output columns for ALL B
-// rows, with weights stored (N, K) so a warp streams one contiguous row
-// with 16-byte loads while the bf16 input rows sit in shared memory.  The
+// rows (for each half of up to 32), with weights stored (N, K) so a warp
+// streams one contiguous row with 16-, 8- or 4-byte loads of 8 weights
+// (bf16, int8, int4) while the bf16 input rows sit in shared memory.  The
 // TPU kernel's sequential layer grid becomes a host loop over layers (five
-// launches a layer); its slab DMA ring, chunking and aligned append windows
-// are TPU mechanics with no counterpart here.  Launch overhead, not bytes,
-// is expected to dominate this first version; CUDA graphs, split-T
-// attention and a TMA/wgmma weight stream are later work.
+// launches a layer, six on the int4 cache); its slab DMA ring, chunking and
+// aligned append windows are TPU mechanics with no counterpart here.
+// Launch overhead, not bytes, is expected to dominate this first version;
+// CUDA graphs, split-T attention, wider loads for the quantized tiers and a
+// TMA/wgmma weight stream are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libdecode_step.so decode_step.cu
@@ -51,8 +75,9 @@
 
 namespace {
 
-constexpr int kMaxB = 32;        // most batch rows a step takes
-constexpr int kKvPad = 128;      // pad lanes of an int8 cache row
+constexpr int kMaxB = 64;        // most batch rows a step takes
+constexpr int kRowsPerBlock = 32;  // input rows a gemv block keeps
+constexpr int kKvPad = 128;      // pad lanes of a quantized cache row
 constexpr int kGemvWarps = 4;    // warps per gemv block
 constexpr int kColsPerWarp = 2;  // output columns per warp
 constexpr int kAttnThreads = 128;
@@ -61,6 +86,8 @@ constexpr int kAttnThreads = 128;
 constexpr size_t kDefaultSmem = 46 * 1024;
 
 enum InMode { IN_NONE = 0, IN_RMS = 1, IN_SILU = 2 };
+enum WeightTier { W_BF16 = 0, W_INT8 = 8, W_INT4 = 4 };
+enum CacheTier { KV_BF16 = 0, KV_INT8 = 8, KV_INT4 = 4 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -89,25 +116,55 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
+// 8 weights at k0..k0+7 of a row, widened to f32 (exact for every tier).
+// Row starts and k0 are multiples of 8 values, so every load is aligned.
+template <int WT>
+__device__ __forceinline__ void load_weights8(const void* row, int k0, float* f) {
+  if (WT == W_BF16) {
+    unpack8(__ldg(reinterpret_cast<const uint4*>(
+                static_cast<const __nv_bfloat16*>(row) + k0)), f);
+  } else if (WT == W_INT8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const int8_t*>(row) + k0));
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = (float)b[i];
+  } else {
+    const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(
+        static_cast<const int8_t*>(row) + k0 / 2));
+#pragma unroll
+    for (int i = 0; i < 8; ++i)  // nibble i, sign-extended: (w << 28) >> 28
+      f[i] = (float)((int32_t)(v << (28 - 4 * i)) >> 28);
+  }
+}
+
 // out[b, n] (=|+=) sum_k bf16(in'[b, k]) * W[n, k]   for b < B, n < N
 // in' is the prologue's transform of x:
 //   IN_NONE: x[b, k]
 //   IN_RMS:  x[b, k] * rsqrt(mean_k x[b, :]^2 + eps) * lnw[k]
 //   IN_SILU: silu(x[b, k]) * x[b, K + k]      (x holds [gate | up])
-// W is (N, K) row-major bf16; K % 8 == 0; x rows are x_stride floats apart.
-// BR (16 or 32) is the number of row accumulators a warp carries; a row's
-// sum does not depend on it.
-template <int MODE, bool ADD, int BR>
+// W is (N, K) row-major of tier WT: bf16, int8, or int4 nibbles (K/2 bytes a
+// row); quantized tiers carry wscale (N, K/group) f32 and W[n, k] stands for
+// the integer times wscale[n, k / group].  K % 8 == 0 and group % 8 == 0; x
+// rows are x_stride floats apart.  Block (., y) serves rows
+// [32 y, 32 y + 32).  BR (16 or 32) is the number of row accumulators a warp
+// carries; a row's sum does not depend on it, on B or on y.
+template <int MODE, bool ADD, int BR, int WT>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 gemv_kernel(const float* __restrict__ x, int x_stride,
-            const float* __restrict__ lnw, const __nv_bfloat16* __restrict__ W,
+            const float* __restrict__ lnw, const void* __restrict__ W,
+            const float* __restrict__ wscale, int group,
             float* __restrict__ out, int out_stride, int B, int K, int N,
             float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [B][K]
-  __shared__ float rscale[kMaxB];
+  __shared__ float rscale[kRowsPerBlock];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * kRowsPerBlock;
+  x += (size_t)row0 * x_stride;
+  out += (size_t)row0 * out_stride;
+  B = min(B - row0, kRowsPerBlock);
 
   // Prologue: every block builds the bf16 input rows in shared memory from
   // the f32 rows (L2-resident, a few KB).  Loads are 16 bytes wide and the
@@ -165,19 +222,26 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
 #pragma unroll
     for (int b = 0; b < BR; ++b) acc[c][b] = 0.f;
 
-  const __nv_bfloat16* wrow[kColsPerWarp];
+  // bytes of a weight row: 2, 1 or 1/2 a value
+  const size_t row_bytes = WT == W_BF16 ? (size_t)K * 2
+                           : WT == W_INT8 ? (size_t)K : (size_t)K / 2;
+  const int G = WT == W_BF16 ? 0 : K / group;  // scale groups of a row
+  const char* wrow[kColsPerWarp];
+  const float* srow[kColsPerWarp];
 #pragma unroll
   for (int c = 0; c < kColsPerWarp; ++c) {
     const int n = min(n0 + c, N - 1);  // a ragged last column recomputes N-1
-    wrow[c] = W + (size_t)n * K;
+    wrow[c] = static_cast<const char*>(W) + (size_t)n * row_bytes;
+    srow[c] = WT == W_BF16 ? nullptr : wscale + (size_t)n * G;
   }
 #pragma unroll 2
   for (int k0 = lane * 8; k0 < K; k0 += 256) {
     float wf[kColsPerWarp][8];
+    float sc[kColsPerWarp];
 #pragma unroll
     for (int c = 0; c < kColsPerWarp; ++c) {
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wrow[c] + k0));
-      unpack8(wv, wf[c]);
+      load_weights8<WT>(wrow[c], k0, wf[c]);
+      if (WT != W_BF16) sc[c] = __ldg(srow[c] + k0 / group);
     }
 #pragma unroll
     for (int b = 0; b < BR; ++b) {
@@ -185,9 +249,18 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
         float xf[8];
         unpack8(*reinterpret_cast<const uint4*>(xs + (size_t)b * K + k0), xf);
 #pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c)
+        for (int c = 0; c < kColsPerWarp; ++c) {
+          if (WT == W_BF16) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[c][b] = fmaf(xf[j], wf[c][j], acc[c][b]);
+            for (int j = 0; j < 8; ++j)
+              acc[c][b] = fmaf(xf[j], wf[c][j], acc[c][b]);
+          } else {  // the run's f32 sum, then its group's scale
+            float part = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) part = fmaf(xf[j], wf[c][j], part);
+            acc[c][b] = fmaf(part, sc[c], acc[c][b]);
+          }
+        }
       }
     }
   }
@@ -219,15 +292,13 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return r;
 }
 
-// Quantize one head of an appended row: x holds the head's Dh f32 values in
-// shared memory; row points at the int8 cache row.  Every thread derives the
-// head's scale (the same value), thread d stores value d, thread 0 the scale
-// bytes.  The arithmetic is ops/kv_quant.py::head_scales, step for step.
-__device__ __forceinline__ void kv8_append_head(const float* x, int8_t* row,
-                                                int h, int H, int Dh) {
-  float a = 0.f;
-  for (int d = 0; d < Dh; ++d) a = fmaxf(a, fabsf(x[d]));
-  const float sc = a / 127.0f;
+// The stored scale of one head of an appended row from its absmax `a`, for
+// values quantized to [-maxq, maxq]: mantissa and exponent bytes, and the
+// divisor m * 2^e (at least 1e-30).  ops/kv_quant.py::head_scales, step for
+// step.
+__device__ __forceinline__ float head_scale(float a, float maxq, float* mant_out,
+                                            int* es_out) {
+  const float sc = a / maxq;
   int e = ilogbf(fmaxf(sc, 1e-30f));            // floor(log2), exact
   float mant = ceilf(ldexpf(sc, -e) * 64.0f);   // in [64, 128]
   if (mant > 127.0f) {
@@ -236,26 +307,124 @@ __device__ __forceinline__ void kv8_append_head(const float* x, int8_t* row,
   }
   if (!(a > 0.0f)) mant = 0.0f;
   const int es = min(max(e - 6, -126), 126);
-  const float div = fmaxf(ldexpf(mant, es), 1e-30f);
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    const float q = fminf(fmaxf(rintf(x[d] / div), -127.0f), 127.0f);
-    row[h * Dh + d] = (int8_t)q;
-  }
+  *mant_out = mant;
+  *es_out = es;
+  return fmaxf(ldexpf(mant, es), 1e-30f);
+}
+
+__device__ __forceinline__ float quantize_value(float x, float div, float maxq) {
+  return fminf(fmaxf(rintf(x / div), -maxq), maxq);
+}
+
+// Quantize one head of an appended kv8 row: x holds the head's Dh f32 values
+// in shared memory; row points at the int8 cache row.  Every thread derives
+// the head's scale (the same value), thread d stores value d, thread 0 the
+// scale bytes.
+__device__ __forceinline__ void kv8_append_head(const float* x, int8_t* row,
+                                                int h, int H, int Dh) {
+  float a = 0.f;
+  for (int d = 0; d < Dh; ++d) a = fmaxf(a, fabsf(x[d]));
+  float mant;
+  int es;
+  const float div = head_scale(a, 127.0f, &mant, &es);
+  for (int d = threadIdx.x; d < Dh; d += blockDim.x)
+    row[h * Dh + d] = (int8_t)quantize_value(x[d], div, 127.0f);
   if (threadIdx.x == 0) {
     row[H * Dh + h] = (int8_t)mant;
     row[H * Dh + H + h] = (int8_t)es;
   }
 }
 
+__device__ __forceinline__ bool row_is_live(int c, int lob, int T) {
+  return c >= 0 && c < T && c - lob + 1 > 0;
+}
+
+// The kv4 append, one block per row b: rope k, quantize the whole roped k
+// row and the v row per head, and write row cur[b] of this layer's caches,
+// [packed(HD/2) | m(H) | e(H) | zeros].  A byte carries feature f (low
+// nibble) and feature HD/2 + f (high), that is two heads, which is why one
+// block writes the whole row.  A row the attention kernel poisons (position
+// outside [0, T), or no visible key) is not written.  Shared memory: the
+// f32 k and v rows and their per-head divisors, (2 HD + 2 H) floats.
+__global__ void __launch_bounds__(kAttnThreads)
+kv4_append_kernel(const float* __restrict__ qkv, const float* __restrict__ cosb,
+                  const float* __restrict__ sinb, int8_t* __restrict__ kc,
+                  int8_t* __restrict__ vc, const int* __restrict__ cur,
+                  const int* __restrict__ lo, int T, int H, int Dh) {
+  extern __shared__ __align__(16) float sm[];
+  const int b = blockIdx.x;
+  const int HD = H * Dh, half = Dh / 2, QW = HD / 2, W = QW + kKvPad;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  float* kf = sm;            // [HD] roped k
+  float* vf = kf + HD;       // [HD] v
+  float* kdiv = vf + HD;     // [H]
+  float* vdiv = kdiv + H;    // [H]
+  const int c = cur[b];
+  if (!row_is_live(c, max(lo[b], 0), T)) return;  // uniform over the block
+  const float* k = qkv + (size_t)b * 3 * HD + HD;
+  const float* v = k + HD;
+  for (int f = tid; f < HD; f += nthreads) {
+    const int d = f % Dh, base = f - d;
+    const float cs = cosb[b * Dh + d], sn = sinb[b * Dh + d];
+    const float rk = d < half ? -bf16_round(k[base + d + half])
+                              : bf16_round(k[base + d - half]);
+    kf[f] = k[f] * cs + rk * sn;
+    vf[f] = v[f];
+  }
+  __syncthreads();
+  int8_t* krow = kc + ((size_t)b * T + c) * W;
+  int8_t* vrow = vc + ((size_t)b * T + c) * W;
+  for (int hh = warp; hh < 2 * H; hh += nwarps) {  // k heads, then v heads
+    const int h = hh % H;
+    const float* x = (hh < H ? kf : vf) + h * Dh;
+    float a = 0.f;
+    for (int d = lane; d < Dh; d += 32) a = fmaxf(a, fabsf(x[d]));
+    a = warp_max(a);
+    float mant;
+    int es;
+    const float div = head_scale(a, 7.0f, &mant, &es);
+    if (lane == 0) {
+      (hh < H ? kdiv : vdiv)[h] = div;
+      int8_t* row = hh < H ? krow : vrow;
+      row[QW + h] = (int8_t)mant;
+      row[QW + H + h] = (int8_t)es;
+    }
+  }
+  __syncthreads();
+  for (int f = tid; f < QW; f += nthreads) {
+    const int hl = f / Dh, hh = (QW + f) / Dh;
+    const int klo = (int)quantize_value(kf[f], kdiv[hl], 7.0f);
+    const int khi = (int)quantize_value(kf[QW + f], kdiv[hh], 7.0f);
+    const int vlo = (int)quantize_value(vf[f], vdiv[hl], 7.0f);
+    const int vhi = (int)quantize_value(vf[QW + f], vdiv[hh], 7.0f);
+    krow[f] = (int8_t)((klo & 15) | ((khi & 15) << 4));
+    vrow[f] = (int8_t)((vlo & 15) | ((vhi & 15) << 4));
+  }
+  for (int i = QW + 2 * H + tid; i < W; i += nthreads) {  // pad lanes: zero
+    krow[i] = 0;
+    vrow[i] = 0;
+  }
+}
+
+// Value d of head h of a quantized cache row, as stored (scale not applied).
+template <int KV>
+__device__ __forceinline__ float cache_value(const int8_t* row, int f, int QW) {
+  if (KV == KV_INT8) return (float)row[f];
+  const int byte = f < QW ? row[f] : row[f - QW];  // sign-extended
+  return (float)(f < QW ? (int32_t)((uint32_t)byte << 28) >> 28 : byte >> 4);
+}
+
 // One block per (head h, row b): rope q and k, append k and v at row cur[b]
-// of this layer's cache, then attend q over rows [lo[b], cur[b]] of the
-// cache and write o[b, h*Dh:(h+1)*Dh].  Rows outside the window are never
-// read, and only row cur[b] is written.  KV8 selects the int8 row format.
+// of this layer's cache (kv4: appended already by kv4_append_kernel), then
+// attend q over rows [lo[b], cur[b]] of the cache and write
+// o[b, h*Dh:(h+1)*Dh].  Rows outside the window are never read, and only
+// row cur[b] is written.  KV selects the row format.
 // A position outside [0, T), or a window with no key, is not clamped: the
 // row's output is NaN, so the fault shows in the step's result.
 // Dh divides blockDim (128); shared memory holds Dh bf16-rounded query
-// values, the f32 k and v of the head (KV8), T scores and the partial sums.
-template <bool KV8>
+// values, the f32 k and v of the head (kv8), T scores and the partial sums.
+template <int KV>
 __global__ void __launch_bounds__(kAttnThreads)
 rope_append_attend_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ cosb,
@@ -268,12 +437,14 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   __shared__ float red[kAttnThreads / 32];
   const int h = blockIdx.x, b = blockIdx.y;
   const int HD = H * Dh, half = Dh / 2;
-  const int W = KV8 ? HD + kKvPad : HD;  // cache row width in elements
+  // quantized values' bytes before the scale lanes, and the row's width
+  const int QW = KV == KV_INT4 ? HD / 2 : HD;
+  const int W = KV == KV_BF16 ? HD : QW + kKvPad;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   float* qs = sm;                     // [Dh]
-  float* kf = qs + Dh;                // [Dh] roped k, f32 (KV8)
-  float* vf = kf + Dh;                // [Dh] v, f32 (KV8)
+  float* kf = qs + Dh;                // [Dh] roped k, f32 (kv8)
+  float* vf = kf + Dh;                // [Dh] v, f32 (kv8)
   float* part = vf + Dh;              // [nthreads]
   float* sc = part + nthreads;        // [T]
   __nv_bfloat16* kcb = static_cast<__nv_bfloat16*>(kc_raw);
@@ -284,7 +455,7 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   const int c = cur[b];
   const int lob = max(lo[b], 0);
   const int n = c - lob + 1;
-  if (c < 0 || c >= T || n <= 0) {  // uniform over the block
+  if (!row_is_live(c, lob, T)) {  // uniform over the block
     for (int d = tid; d < Dh; d += nthreads)
       o[(size_t)b * HD + (size_t)h * Dh + d] = __int_as_float(0x7fc00000);
     return;
@@ -297,20 +468,22 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   for (int d = tid; d < Dh; d += nthreads) {
     const float cs = cosb[b * Dh + d], sn = sinb[b * Dh + d];
     const float rq = d < half ? -bf16_round(q[d + half]) : bf16_round(q[d - half]);
-    const float rk = d < half ? -bf16_round(k[d + half]) : bf16_round(k[d - half]);
     const float qr = q[d] * cs + rq * sn;
-    const float kr = k[d] * cs + rk * sn;
-    if (KV8) {
-      kf[d] = kr;
-      vf[d] = v[d];
-    } else {
-      kcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(kr);
-      vcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(v[d]);
+    if (KV != KV_INT4) {
+      const float rk = d < half ? -bf16_round(k[d + half]) : bf16_round(k[d - half]);
+      const float kr = k[d] * cs + rk * sn;
+      if (KV == KV_INT8) {
+        kf[d] = kr;
+        vf[d] = v[d];
+      } else {
+        kcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(kr);
+        vcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(v[d]);
+      }
     }
     qs[d] = bf16_round(qr * scale);
   }
   __syncthreads();  // qs (and kf, vf, or the appended row) visible block-wide
-  if (KV8) {
+  if (KV == KV_INT8) {
     kv8_append_head(kf, kc8 + row_cur, h, H, Dh);
     kv8_append_head(vf, vc8 + row_cur, h, H, Dh);
     if (h == 0) {  // the lanes after the scales are written zero
@@ -325,12 +498,12 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   for (int i = warp; i < n; i += nwarps) {
     const size_t row = ((size_t)b * T + lob + i) * W;
     float a = 0.f;
-    if (KV8) {
+    if (KV != KV_BF16) {
       const int8_t* kr = kc8 + row;
       for (int d = lane; d < Dh; d += 32)
-        a = fmaf((float)kr[h * Dh + d], qs[d], a);
+        a = fmaf(cache_value<KV>(kr, h * Dh + d, QW), qs[d], a);
       a = warp_sum(a);
-      if (lane == 0) sc[i] = a * ldexpf((float)kr[HD + h], (int)kr[HD + H + h]);
+      if (lane == 0) sc[i] = a * ldexpf((float)kr[QW + h], (int)kr[QW + H + h]);
     } else {
       const __nv_bfloat16* kr = kcb + row + (size_t)h * Dh;
       for (int d = lane; d < Dh; d += 32) a = fmaf(__bfloat162float(kr[d]), qs[d], a);
@@ -346,9 +519,9 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   for (int i = tid; i < n; i += nthreads) {
     const float p = expf(sc[i] - m);
     l += p;
-    if (KV8) {  // the value row's scale goes into p before its rounding
+    if (KV != KV_BF16) {  // the value row's scale goes into p before its rounding
       const int8_t* vr = vc8 + ((size_t)b * T + lob + i) * W;
-      sc[i] = bf16_round(p * ldexpf((float)vr[HD + h], (int)vr[HD + H + h]));
+      sc[i] = bf16_round(p * ldexpf((float)vr[QW + h], (int)vr[QW + H + h]));
     } else {
       sc[i] = bf16_round(p);
     }
@@ -358,8 +531,10 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   const int d = tid % Dh, slice = tid / Dh, nslices = nthreads / Dh;
   float a = 0.f;
   for (int i = slice; i < n; i += nslices) {
-    const size_t row = ((size_t)b * T + lob + i) * W + (size_t)h * Dh + d;
-    const float vv = KV8 ? (float)vc8[row] : __bfloat162float(vcb[row]);
+    const size_t row = ((size_t)b * T + lob + i) * W;
+    const float vv = KV == KV_BF16
+                         ? __bfloat162float(vcb[row + (size_t)h * Dh + d])
+                         : cache_value<KV>(vc8 + row, h * Dh + d, QW);
     a = fmaf(sc[i], vv, a);
   }
   part[tid] = a;
@@ -370,52 +545,140 @@ rope_append_attend_kernel(const float* __restrict__ qkv,
   }
 }
 
-template <int MODE, bool ADD, int BR>
+// one matrix of a layer: its values, and for a quantized tier its scales
+// (N, K / group) f32
+struct Weights {
+  const void* w;
+  const float* scale;
+  int group;
+};
+
+template <int MODE, bool ADD, int BR, int WT>
 cudaError_t launch_gemv_rows(const float* x, int x_stride, const float* lnw,
-                             const __nv_bfloat16* W, float* out,
-                             int out_stride, int B, int K, int N, float eps,
-                             cudaStream_t st) {
-  const size_t smem = (size_t)B * K * sizeof(__nv_bfloat16);
+                             Weights wt, float* out, int out_stride, int B,
+                             int K, int N, float eps, cudaStream_t st) {
+  const size_t smem = (size_t)(B < kRowsPerBlock ? B : kRowsPerBlock) * K *
+                      sizeof(__nv_bfloat16);
   // the attribute is per device, so it is set before every such launch
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<MODE, ADD, BR>,
+        gemv_kernel<MODE, ADD, BR, WT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int cols = kGemvWarps * kColsPerWarp;
-  gemv_kernel<MODE, ADD, BR>
-      <<<(N + cols - 1) / cols, kGemvWarps * 32, smem, st>>>(
-          x, x_stride, lnw, W, out, out_stride, B, K, N, eps);
+  const dim3 grid((N + cols - 1) / cols,
+                  (B + kRowsPerBlock - 1) / kRowsPerBlock);
+  gemv_kernel<MODE, ADD, BR, WT><<<grid, kGemvWarps * 32, smem, st>>>(
+      x, x_stride, lnw, wt.w, wt.scale, wt.group, out, out_stride, B, K, N,
+      eps);
   return cudaGetLastError();
 }
 
-template <int MODE, bool ADD>
+template <int MODE, bool ADD, int WT>
 cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
-                        const __nv_bfloat16* W, float* out, int out_stride,
-                        int B, int K, int N, float eps, cudaStream_t st) {
+                        Weights wt, float* out, int out_stride, int B, int K,
+                        int N, float eps, cudaStream_t st) {
   if (B <= 16)
-    return launch_gemv_rows<MODE, ADD, 16>(x, x_stride, lnw, W, out,
-                                           out_stride, B, K, N, eps, st);
-  return launch_gemv_rows<MODE, ADD, 32>(x, x_stride, lnw, W, out, out_stride,
-                                         B, K, N, eps, st);
+    return launch_gemv_rows<MODE, ADD, 16, WT>(x, x_stride, lnw, wt, out,
+                                               out_stride, B, K, N, eps, st);
+  return launch_gemv_rows<MODE, ADD, 32, WT>(x, x_stride, lnw, wt, out,
+                                             out_stride, B, K, N, eps, st);
 }
 
-template <bool KV8>
+template <int KV>
 cudaError_t launch_attend(const float* qkv, const float* cosb,
                           const float* sinb, void* kc, void* vc,
                           const int* cur, const int* lo, float* o, int B,
                           int T, int H, int Dh, float scale, cudaStream_t st) {
+  if (KV == KV_INT4) {  // the append is its own launch: see kv4_append_kernel
+    const size_t asmem = (size_t)(2 * H * Dh + 2 * H) * sizeof(float);
+    if (asmem > kDefaultSmem) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kv4_append_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)asmem);
+      if (e != cudaSuccess) return e;
+    }
+    kv4_append_kernel<<<B, kAttnThreads, asmem, st>>>(
+        qkv, cosb, sinb, static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
+        cur, lo, T, H, Dh);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   const size_t smem = (size_t)(3 * Dh + kAttnThreads + T) * sizeof(float);
   if (smem > kDefaultSmem) {  // per device: set on every call
     cudaError_t e = cudaFuncSetAttribute(
-        rope_append_attend_kernel<KV8>,
+        rope_append_attend_kernel<KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  rope_append_attend_kernel<KV8><<<dim3(H, B), kAttnThreads, smem, st>>>(
+  rope_append_attend_kernel<KV><<<dim3(H, B), kAttnThreads, smem, st>>>(
       qkv, cosb, sinb, kc, vc, cur, lo, o, T, H, Dh, scale);
   return cudaGetLastError();
+}
+
+struct StepArgs {
+  float *x, *qkv, *o, *gu;
+  const char *wqkv, *wo, *wgu, *wd;         // (L, N, K) of the weight tier
+  const float *sqkv, *so, *sgu, *sd;        // (L, N, K / group), or null
+  const float *ln1, *ln2, *cosb, *sinb;
+  char *kc, *vc;
+  const int *cur, *lo;
+  int B, D, H, Dh, I, L, T, kv_bits, group;
+  float eps, scale;
+  cudaStream_t st;
+};
+
+// The layer loop for one weight tier: five launches a layer, six on kv4.
+template <int WT>
+cudaError_t run_layers(const StepArgs& a) {
+  const int HD = a.H * a.Dh, D = a.D, I = a.I, B = a.B;
+  // bytes of a matrix of n values, and its scales' count
+  auto wbytes = [](size_t n) {
+    return WT == W_BF16 ? n * 2 : WT == W_INT8 ? n : n / 2;
+  };
+  const int group = WT == W_BF16 ? 1 : a.group;
+  const size_t row_bytes = a.kv_bits == KV_BF16   ? (size_t)HD * 2
+                           : a.kv_bits == KV_INT8 ? (size_t)HD + kKvPad
+                                                  : (size_t)HD / 2 + kKvPad;
+  const size_t layer_bytes = (size_t)B * a.T * row_bytes;
+  auto weights = [&](const char* w, const float* s, int l, size_t N, size_t K) {
+    return Weights{w + (size_t)l * wbytes(N * K),
+                   WT == W_BF16 ? nullptr : s + (size_t)l * N * (K / group),
+                   group};
+  };
+  cudaError_t e;
+  for (int l = 0; l < a.L; ++l) {
+    char* kl = a.kc + (size_t)l * layer_bytes;
+    char* vl = a.vc + (size_t)l * layer_bytes;
+    e = launch_gemv<IN_RMS, false, WT>(
+        a.x, D, a.ln1 + (size_t)l * D, weights(a.wqkv, a.sqkv, l, 3 * HD, D),
+        a.qkv, 3 * HD, B, D, 3 * HD, a.eps, a.st);
+    if (e != cudaSuccess) return e;
+    if (a.kv_bits == KV_INT8)
+      e = launch_attend<KV_INT8>(a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo,
+                                 a.o, B, a.T, a.H, a.Dh, a.scale, a.st);
+    else if (a.kv_bits == KV_INT4)
+      e = launch_attend<KV_INT4>(a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo,
+                                 a.o, B, a.T, a.H, a.Dh, a.scale, a.st);
+    else
+      e = launch_attend<KV_BF16>(a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo,
+                                 a.o, B, a.T, a.H, a.Dh, a.scale, a.st);
+    if (e != cudaSuccess) return e;
+    e = launch_gemv<IN_NONE, true, WT>(a.o, HD, nullptr,
+                                       weights(a.wo, a.so, l, D, HD), a.x, D,
+                                       B, HD, D, a.eps, a.st);
+    if (e != cudaSuccess) return e;
+    e = launch_gemv<IN_RMS, false, WT>(
+        a.x, D, a.ln2 + (size_t)l * D, weights(a.wgu, a.sgu, l, 2 * I, D),
+        a.gu, 2 * I, B, D, 2 * I, a.eps, a.st);
+    if (e != cudaSuccess) return e;
+    e = launch_gemv<IN_SILU, true, WT>(a.gu, 2 * I, nullptr,
+                                       weights(a.wd, a.sd, l, D, I), a.x, D,
+                                       B, I, D, a.eps, a.st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -425,66 +688,61 @@ extern "C" {
 // All pointers are device pointers.  Shapes: emb-derived residual x (B, D)
 // f32, updated in place to the pre-final-norm residual; scratch qkv
 // (B, 3*HD), o (B, HD), gu (B, 2*I) f32; weights wqkv (L, 3*HD, D),
-// wo (L, D, HD), wgu (L, 2*I, D), wd (L, D, I) bf16; ln1/ln2 (L, D) f32;
-// cos/sin (B, Dh) f32 at each row's rope position; caches kc/vc
-// (L, B, T, HD) bf16 (kv8 == 0) or (L, B, T, HD + 128) int8 (kv8 == 1),
-// written only at row cur[b] of row b; cur and lo (B,) int32.
+// wo (L, D, HD), wgu (L, 2*I, D), wd (L, D, I) in bf16 (weight_bits 0), int8
+// (8) or nibbles, K/2 bytes a row (4); for 8 and 4 their scales sqkv, so,
+// sgu, sd (L, N, K / group) f32, group rows of the contraction to a scale;
+// ln1/ln2 (L, D) f32; cos/sin (B, Dh) f32 at each row's rope position;
+// caches kc/vc (L, B, T, HD) bf16 (kv_bits 0), (L, B, T, HD + 128) int8 (8)
+// or (L, B, T, HD/2 + 128) int8 (4), written only at row cur[b] of row b;
+// cur and lo (B,) int32.
 // Returns the first CUDA error of any launch (0 on success).
 int decode_step_launch(void* x, void* qkv, void* o, void* gu,
                        const void* wqkv, const void* wo, const void* wgu,
-                       const void* wd, const void* ln1, const void* ln2,
-                       const void* cosb, const void* sinb, void* kc, void* vc,
-                       const void* cur, const void* lo, int B, int D, int H,
-                       int Dh, int I, int L, int T, int kv8, float eps,
+                       const void* wd, const void* sqkv, const void* so,
+                       const void* sgu, const void* sd, const void* ln1,
+                       const void* ln2, const void* cosb, const void* sinb,
+                       void* kc, void* vc, const void* cur, const void* lo,
+                       int B, int D, int H, int Dh, int I, int L, int T,
+                       int kv_bits, int weight_bits, int group, float eps,
                        float scale, void* stream) {
-  if (B < 1 || B > kMaxB || D % 8 || I % 8 || (H * Dh) % 8 ||
-      kAttnThreads % Dh || T < 1 || (kv8 && 2 * H > kKvPad))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int HD = H * Dh;
-  float* xf = static_cast<float*>(x);
-  float* qkvf = static_cast<float*>(qkv);
-  float* of = static_cast<float*>(o);
-  float* guf = static_cast<float*>(gu);
-  const __nv_bfloat16* Wqkv = static_cast<const __nv_bfloat16*>(wqkv);
-  const __nv_bfloat16* Wo = static_cast<const __nv_bfloat16*>(wo);
-  const __nv_bfloat16* Wgu = static_cast<const __nv_bfloat16*>(wgu);
-  const __nv_bfloat16* Wd = static_cast<const __nv_bfloat16*>(wd);
-  const float* l1 = static_cast<const float*>(ln1);
-  const float* l2 = static_cast<const float*>(ln2);
-  const float* cosf_ = static_cast<const float*>(cosb);
-  const float* sinf_ = static_cast<const float*>(sinb);
-  const int* curp = static_cast<const int*>(cur);
-  const int* lop = static_cast<const int*>(lo);
-  // bytes of one layer's cache
-  const size_t layer_bytes =
-      (size_t)B * T * (kv8 ? (size_t)(HD + kKvPad) : (size_t)HD * 2);
-
-  cudaError_t e;
-  for (int l = 0; l < L; ++l) {
-    char* kl = static_cast<char*>(kc) + (size_t)l * layer_bytes;
-    char* vl = static_cast<char*>(vc) + (size_t)l * layer_bytes;
-    e = launch_gemv<IN_RMS, false>(xf, D, l1 + (size_t)l * D,
-                                   Wqkv + (size_t)l * 3 * HD * D, qkvf, 3 * HD,
-                                   B, D, 3 * HD, eps, st);
-    if (e != cudaSuccess) return (int)e;
-    e = kv8 ? launch_attend<true>(qkvf, cosf_, sinf_, kl, vl, curp, lop, of, B,
-                                  T, H, Dh, scale, st)
-            : launch_attend<false>(qkvf, cosf_, sinf_, kl, vl, curp, lop, of,
-                                   B, T, H, Dh, scale, st);
-    if (e != cudaSuccess) return (int)e;
-    e = launch_gemv<IN_NONE, true>(of, HD, nullptr, Wo + (size_t)l * D * HD, xf,
-                                   D, B, HD, D, eps, st);
-    if (e != cudaSuccess) return (int)e;
-    e = launch_gemv<IN_RMS, false>(xf, D, l2 + (size_t)l * D,
-                                   Wgu + (size_t)l * 2 * I * D, guf, 2 * I, B,
-                                   D, 2 * I, eps, st);
-    if (e != cudaSuccess) return (int)e;
-    e = launch_gemv<IN_SILU, true>(guf, 2 * I, nullptr, Wd + (size_t)l * D * I,
-                                   xf, D, B, I, D, eps, st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  const bool quant = weight_bits != W_BF16;
+  if (B < 1 || B > kMaxB || D % 8 || I % 8 || HD % 8 || kAttnThreads % Dh ||
+      T < 1 || (kv_bits && 2 * H > kKvPad) ||
+      (kv_bits != KV_BF16 && kv_bits != KV_INT8 && kv_bits != KV_INT4) ||
+      (kv_bits == KV_INT4 && (Dh % 2 || HD % 256)) ||
+      (weight_bits != W_BF16 && weight_bits != W_INT8 &&
+       weight_bits != W_INT4) ||
+      (quant && (group < 8 || group % 8 || D % group || HD % group ||
+                 I % group || !sqkv || !so || !sgu || !sd)))
+    return (int)cudaErrorInvalidValue;
+  StepArgs a;
+  a.x = static_cast<float*>(x);
+  a.qkv = static_cast<float*>(qkv);
+  a.o = static_cast<float*>(o);
+  a.gu = static_cast<float*>(gu);
+  a.wqkv = static_cast<const char*>(wqkv);
+  a.wo = static_cast<const char*>(wo);
+  a.wgu = static_cast<const char*>(wgu);
+  a.wd = static_cast<const char*>(wd);
+  a.sqkv = static_cast<const float*>(sqkv);
+  a.so = static_cast<const float*>(so);
+  a.sgu = static_cast<const float*>(sgu);
+  a.sd = static_cast<const float*>(sd);
+  a.ln1 = static_cast<const float*>(ln1);
+  a.ln2 = static_cast<const float*>(ln2);
+  a.cosb = static_cast<const float*>(cosb);
+  a.sinb = static_cast<const float*>(sinb);
+  a.kc = static_cast<char*>(kc);
+  a.vc = static_cast<char*>(vc);
+  a.cur = static_cast<const int*>(cur);
+  a.lo = static_cast<const int*>(lo);
+  a.B = B, a.D = D, a.H = H, a.Dh = Dh, a.I = I, a.L = L, a.T = T;
+  a.kv_bits = kv_bits, a.group = group, a.eps = eps, a.scale = scale;
+  a.st = static_cast<cudaStream_t>(stream);
+  if (weight_bits == W_INT8) return (int)run_layers<W_INT8>(a);
+  if (weight_bits == W_INT4) return (int)run_layers<W_INT4>(a);
+  return (int)run_layers<W_BF16>(a);
 }
 
 }  // extern "C"

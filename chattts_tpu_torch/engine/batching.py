@@ -15,7 +15,8 @@ What differs from the JAX package, and why:
 * The reference compiles its chunk into one ``lax.while_loop``; here a chunk
   is a Python loop of decode steps, every one of them the whole-step CUDA
   kernel with a position per slot (``ops/decode_step.py``: K2+K3 on the
-  default int8 cache, K2 with ``kv_bits=0``).  **No step reads anything back
+  default int8 cache, K2 with ``kv_bits=0``, K2+K6 with ``kv_bits=4``, on
+  packed weights of any tier).  **No step reads anything back
   to the host**: positions, flags and counters live in device tensors that
   are updated in place, and one packed transfer (status scalars and the
   chunk's ids) follows the chunk.  On CUDA that transfer is a non-blocking
@@ -54,7 +55,7 @@ from ..models import embed as embed_mod
 from ..models import llama
 from ..ops import decode_step as step_mod
 from ..ops import sampling, threefry
-from ..ops.kv_quant import KV_PAD, kv8_quantize
+from ..ops.kv_quant import kv_quantizer, row_width
 from .generate import REP_WINDOW, GenerationOutputs
 
 # steps whose sampling noise is drawn in one go (bounds its memory: a block
@@ -66,9 +67,11 @@ _FINISH, _ACTIVE, _END, _STEP_IN, _MAX_NEW, _SEQ_OFF, _RAN = range(7)
 
 def fused_slot_limit(kv_bits: int) -> int:
     """Widest slot count an engine serves: 32 with the int8 cache, 16 with
-    the bf16 cache (the reference's tiers; the 32-slot "wide" tier exists
-    only with a quantized cache)."""
-    return step_mod.MAX_ROWS if kv_bits else 16
+    the bf16 cache (the reference's defaults; the 32-slot "wide" tier exists
+    only with a quantized cache), and the decode step's 64 rows where the
+    caller asks for the int4 cache (the reference's documented 64-slot
+    configuration, slot count over throughput)."""
+    return {0: 16, 8: 32, 4: step_mod.MAX_ROWS}[kv_bits]
 
 
 @dataclass(frozen=True)
@@ -226,18 +229,13 @@ class SlotState:
                  device):
         S, Tc = ecfg.max_num_seqs, ecfg.cache_len
         D, L = cfg.hidden_size, cfg.num_hidden_layers
-        HD = cfg.num_attention_heads * cfg.head_dim
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=device)
 
         # flat stacked caches, the decode kernel's layout
-        if kv_bits == 8:
-            cshape, cdtype = (L, S, Tc, HD + KV_PAD), torch.int8
-        elif kv_bits == 0:
-            cshape, cdtype = (L, S, Tc, HD), torch.bfloat16
-        else:
-            raise ValueError(f"kv_bits must be 8 or 0, not {kv_bits}")
+        cshape = (L, S, Tc, row_width(kv_bits, cfg))
+        cdtype = torch.int8 if kv_bits else torch.bfloat16
         self.kc = full(cshape, 0, cdtype)
         self.vc = full(cshape, 0, cdtype)
         self.ids = full((S, Tc, cfg.num_vq), 0, torch.long)
@@ -274,7 +272,9 @@ class Engine:
                  packed: Optional[dict] = None, kv_bits: int = 8):
         """``packed``: the decode kernel's weight layout, shared with other
         engines and the Generator of the same weights (one copy).
-        ``kv_bits``: 8 (int8 cache, the default) or 0 (bf16 cache)."""
+        ``kv_bits``: 8 (int8 cache, the default), 4 (int4 cache, up to 64
+        slots) or 0 (bf16 cache)."""
+        self._quantize = kv_quantizer(kv_bits, cfg)
         if ecfg.max_num_seqs > fused_slot_limit(kv_bits):
             raise ValueError(
                 f"{ecfg.max_num_seqs} slots exceed the decode step's "
@@ -734,10 +734,10 @@ class Engine:
         HD = cfg.num_attention_heads * cfg.head_dim
         mk = torch.stack([c.reshape(W, Tpb, HD) for c in mini.k])
         mv = torch.stack([c.reshape(W, Tpb, HD) for c in mini.v])
-        if self.kv_bits:
+        if self._quantize:
             # quantize at the prefill -> decode boundary; appended rows use
             # the same scheme in the kernel
-            mk, mv = kv8_quantize(mk, cfg), kv8_quantize(mv, cfg)
+            mk, mv = self._quantize(mk, cfg), self._quantize(mv, cfg)
         st.kc[:, slots, off:off + Tpb] = mk
         st.vc[:, slots, off:off + Tpb] = mv
 

@@ -4,14 +4,16 @@ The JAX package runs its decode loop inside one jitted ``lax.while_loop``;
 here the loop is Python over steps, each step being the same sequence as
 the reference's ``step_body``: head -> sample -> embed -> the decode step
 kernel (``ops/decode_step.py``: K3 on the default int8 KV cache, K1 with
-``kv_bits=0``) -> final ``rms_norm``.  Everything stays on the
+``kv_bits=0``, K6 with ``kv_bits=4``; K4 or K5 on top with int8 or int4
+packed weights) -> final ``rms_norm``.  Everything stays on the
 device; the host reads the all-finished flag every ``SYNC_EVERY`` steps
 (steps run after every row finished change no output: finished rows no
 longer count toward ``end_idx``).
 
 This is the scalar-``cur`` generator: a flat KV cache (L, B, T, W), int8
 rows with embedded scales by default as in the reference (quantized at the
-prefill -> decode boundary, ``ops/kv_quant.py``) or bf16, prompt bucketing,
+prefill -> decode boundary, ``ops/kv_quant.py``), int4 rows or bf16, prompt
+bucketing,
 the repetition-penalty window, EOS handling and the ``ensure_non_empty``
 retry.  The per-slot engine is ``engine/batching.py``; streaming and
 speculation are later slices.
@@ -30,7 +32,7 @@ from ..models import embed as embed_mod
 from ..models import llama
 from ..ops import decode_step as k1
 from ..ops import sampling
-from ..ops.kv_quant import kv8_quantize
+from ..ops.kv_quant import kv_quantizer
 
 REP_WINDOW = 16  # trailing-token window of the repetition penalty
 SYNC_EVERY = 8   # decode steps between host reads of the finished flags
@@ -109,11 +111,11 @@ class Generator:
                  prefill_bucket: int = 32, kv_bits: int = 8,
                  packed: Optional[dict] = None):
         """``kv_bits``: 8 keeps the KV cache in int8 rows with embedded
-        scales (the default, as the reference's), 0 in bf16.  ``packed``:
-        the decode kernel's weight layout when it is shared with engines
-        of the same weights."""
-        if kv_bits not in (0, 8):
-            raise ValueError(f"kv_bits must be 8 or 0, not {kv_bits}")
+        scales (the default, as the reference's), 4 in nibble-packed rows
+        with the same scales, 0 in bf16.  ``packed``: the decode kernel's
+        weight layout, of any weight tier (``pack_weights(weight_bits=)``),
+        when it is shared with engines of the same weights; bf16 if None."""
+        self._quantize = kv_quantizer(kv_bits, cfg)
         self.cfg = cfg
         self.gpt_params = gpt_params
         self.embed_params = embed_params
@@ -174,8 +176,8 @@ class Generator:
         HD = cfg.num_attention_heads * cfg.head_dim
         kc = torch.stack([c.reshape(B, Tbuf, HD) for c in cache.k])
         vc = torch.stack([c.reshape(B, Tbuf, HD) for c in cache.v])
-        if self.kv_bits:  # the prefill -> decode boundary
-            kc, vc = kv8_quantize(kc, cfg), kv8_quantize(vc, cfg)
+        if self._quantize:  # the prefill -> decode boundary
+            kc, vc = self._quantize(kc, cfg), self._quantize(vc, cfg)
         return hidden_all[:, -1], kc, vc, ids_t, attn_t
 
     def _run_once(self, req: GenerateRequest, context: Interrupt,

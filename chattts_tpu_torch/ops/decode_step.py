@@ -1,23 +1,34 @@
-"""The whole decode step as a hand-written CUDA kernel, in four variants, and
-its plain PyTorch version.
+"""The whole decode step as a hand-written CUDA kernel, in every tier of the
+reference, and its plain PyTorch version.
 
 This replaces ``chattts_tpu/ops/pallas_step.py::_kernel`` (launched by
-``decode_step_fused``) with bf16 weights.  One call runs all L layers of one
-autoregressive step and returns the float32 residual *before* the final
-norm; the caller applies ``llama.rms_norm``.  As in the reference, the
-variant follows from the arguments:
+``decode_step_fused``).  One call runs all L layers of one autoregressive
+step and returns the float32 residual *before* the final norm; the caller
+applies ``llama.rms_norm``.  As in the reference, the variant follows from
+the arguments: the cache's type and width, ``cur``'s rank, the weights'
+type and width.
 
-=====  ==========================  =====================================
+=====  ==========================  =========================================
 name   ``cur``                     cache
-=====  ==========================  =====================================
+=====  ==========================  =========================================
 k1     one position (int or 0-d)   (L, B, T, HD) bf16
 k2     a position per row (B,)     (L, B, T, HD) bf16
 k3     one position                (L, B, T, HD + KV_PAD) int8 (kv8 rows)
 k2k3   a position per row          (L, B, T, HD + KV_PAD) int8
-=====  ==========================  =====================================
+k6     one position                (L, B, T, HD/2 + KV_PAD) int8 (kv4 rows)
+k2k6   a position per row          (L, B, T, HD/2 + KV_PAD) int8
+=====  ==========================  =========================================
+
+With int8 weights the name gains ``k4`` (``k3k4``: K4 on the kv8 cache),
+with nibble-packed int4 weights ``k5`` (``k6k5``).  The weight tier touches
+only the matrix products and the cache tier only attention, so the 18
+combinations are three gemv instantiations times three attention ones.
 
 * :func:`pack_weights` lays the decoder weights out for the kernel: each
-  projection as an (N, K) bf16 matrix, one per layer, stacked over layers.
+  projection as an (N, K) matrix with K contiguous, one per layer, stacked
+  over layers; bf16, int8 with scales, or int4 nibbles with group scales.
+  The quantized integers and scales are the reference's
+  (``pack_step_params(int8=, int4=)``), value for value.
 * :func:`decode_step_plain` is the same arithmetic in torch ops, every
   variant: the CPU path, and the card's reference for the kernel.
 * :data:`decode_step` is the wrapper.  A CUDA tensor launches the kernel
@@ -27,17 +38,19 @@ k2k3   a position per row          (L, B, T, HD + KV_PAD) int8
   one to the other.
 
 The caches are updated in place (the TPU kernel aliases them too): only row
-``cur_b`` of row b of every layer is written.  The kv8 row format and its
-quantizer are ``ops/kv_quant.py``'s; rows appended here and rows quantized
-at the prefill dequantize alike.  A position on the device is never read
-back: the kernel takes ``cur`` as a device array, and a position outside
-``[0, T)`` turns that row's result into NaN instead of being clamped.
+``cur_b`` of row b of every layer is written.  The kv8 and kv4 row formats
+and their quantizers are ``ops/kv_quant.py``'s; rows appended here and rows
+quantized at the prefill dequantize alike.  A position on the device is
+never read back: the kernel takes ``cur`` as a device array, and a position
+outside ``[0, T)`` turns that row's result into NaN instead of being
+clamped.
 
 Bound on an H100 at the full config: every weight is read once a step,
-L*(4*D*D + 3*D*I)*2 = 377 MB, ~113 us at 3.35 TB/s, plus the KV read of
+L*(4*D*D + 3*D*I) parameters of 2, 1 or 1/2 bytes (377, 189 or 94 MB: ~113,
+~57 or ~28 us at 3.35 TB/s) plus their scales, plus the KV read of
 2*L*sum_b(cur_b-lo_b+1)*W bytes and the appended rows 2*L*B*W, with W =
-2*HD (bf16) or HD + KV_PAD (kv8).  The kernel's design is described at the
-top of ``csrc/decode_step.cu``.
+2*HD (bf16), HD + KV_PAD (kv8) or HD/2 + KV_PAD (kv4).  The kernel's design
+is described at the top of ``csrc/decode_step.cu``.
 """
 
 from __future__ import annotations
@@ -49,21 +62,85 @@ import numpy as np
 import torch
 
 from ._build import CudaLibrary
-from .kv_quant import KV_PAD, kv8_quantize, row_scales
+from .kv_quant import (KV_PAD, kv4_packable, kv_quantizer, row_scales,
+                       row_width, unpack_nibbles)
 
 NEG = -1e30  # masked-score value of the TPU kernel
-MAX_ROWS = 32  # batch rows a step takes (kMaxB in csrc/decode_step.cu)
-VARIANTS = ("k1", "k2", "k3", "k2k3")
+MAX_ROWS = 64  # batch rows a step takes (kMaxB in csrc/decode_step.cu)
+MATRICES = ("wqkv", "wo", "wgu", "wd")
+# cache and position part of a variant's name, then the weight tier's
+VARIANTS = tuple(base + w for w in ("", "k4", "k5")
+                 for base in ("k1", "k2", "k3", "k2k3", "k6", "k2k6"))
 
 
-def pack_weights(params: dict, cfg) -> Dict[str, torch.Tensor]:
+def int4_group(D: int) -> int:
+    """Rows of a contraction group of the int4 scales: 128, or D/2 where a
+    half slab is narrower (the reference's ``_int4_groups``)."""
+    gs = 128 if (D // 2) % 128 == 0 else D // 2
+    if gs == 0 or (D // 2) % gs:
+        raise ValueError("geometry not int4-groupable")
+    return gs
+
+
+def _quantize_matrix(w: torch.Tensor, gs: int, weight_bits: int):
+    """An (in, out) = (K, N) matrix -> (integers (N, K) int8, scales (N,
+    K/gs) f32), one scale per (``gs``-row contraction group, output column).
+
+    The reference's arithmetic, dtype for dtype: its int8 branch computes in
+    the parameters' own dtype (bf16 parameters give bf16 scales and a bf16
+    division), its int4 branch in f32."""
+    K, N = w.shape
+    if weight_bits == 8:
+        wg = w.reshape(K // gs, gs, N)
+        scale = torch.clamp(wg.abs().amax(dim=1), min=1e-8) / 127.0
+        q = torch.clamp(torch.round(wg / scale[:, None, :]), -127, 127)
+    else:
+        wg = w.to(torch.float32).reshape(K // gs, gs, N)
+        scale = torch.clamp(wg.abs().amax(dim=1), min=1e-8) / 7.0
+        q = torch.clamp(torch.round(wg / scale[:, None, :]), -7, 7)
+    return (q.reshape(K, N).T.to(torch.int8).contiguous(),
+            scale.T.to(torch.float32).contiguous())
+
+
+def pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """(N, K) int8 values in [-8, 7] -> (N, K/2) int8: value 2j in the low
+    nibble of byte j, value 2j + 1 in its high nibble."""
+    q = q.to(torch.int32)
+    u = (q[:, 0::2] & 15) | ((q[:, 1::2] & 15) << 4)
+    return ((u << 24) >> 24).to(torch.int8).contiguous()
+
+
+def unpack_matrix(w: torch.Tensor, K: int) -> torch.Tensor:
+    """A packed (N, K) int8 or (N, K/2) nibble matrix -> (N, K) f32 integer
+    values (exact)."""
+    if w.shape[-1] == K:
+        return w.to(torch.float32)
+    lo_hi = unpack_nibbles(w)                     # (N, K): lows, then highs
+    half = K // 2
+    return torch.stack([lo_hi[:, :half], lo_hi[:, half:]],
+                       dim=-1).reshape(w.shape[0], K).to(torch.float32)
+
+
+def pack_weights(params: dict, cfg, weight_bits: int = 0
+                 ) -> Dict[str, torch.Tensor]:
     """The decoder's parameter tree -> the kernel's layout.
 
     Returns {"wqkv": (L, 3*HD, D), "wo": (L, D, HD), "wgu": (L, 2*I, D),
-    "wd": (L, D, I)} bf16 with K contiguous in every matrix (rows of wgu are
+    "wd": (L, D, I)} with K contiguous in every matrix (rows of wgu are
     [gate | up]), and {"ln1", "ln2"}: (L, D) f32.  Tensors stay on the
     device of ``params``.
+
+    ``weight_bits`` 0 keeps the matrices in bf16.  8 stores int8 values and
+    adds {"sqkv", "so", "sgu", "sd"}: (L, N, K/D) f32 scales, one per
+    (D-row contraction group, output column): one group everywhere but in
+    ``wd``, whose contraction of I has I/D.  4 stores two values a byte,
+    (L, N, K/2) int8, with (L, N, K/gs) scales, gs = :func:`int4_group`.
+    Integers and scales equal ``pack_step_params(int8=, int4=)``'s, whose
+    square (D, D) slabs set the groups: both need HD == D, I % D == 0 and
+    D % 128 == 0.
     """
+    if weight_bits not in (0, 8, 4):
+        raise ValueError(f"weight_bits must be 0, 8 or 4, not {weight_bits}")
     D, I = cfg.hidden_size, cfg.intermediate_size
     HD = cfg.num_attention_heads * cfg.head_dim
     layers = params["layers"]
@@ -71,16 +148,54 @@ def pack_weights(params: dict, cfg) -> Dict[str, torch.Tensor]:
     def stack(fn, dtype):
         return torch.stack([fn(lp) for lp in layers]).to(dtype).contiguous()
 
-    return {
-        "wqkv": stack(lambda lp: lp["attn"]["wqkv"].reshape(D, 3 * HD).T,
-                      torch.bfloat16),
-        "wo": stack(lambda lp: lp["attn"]["wo"].T, torch.bfloat16),
-        "wgu": stack(lambda lp: lp["mlp"]["wgu"].reshape(D, 2 * I).T,
-                     torch.bfloat16),
-        "wd": stack(lambda lp: lp["mlp"]["down"].T, torch.bfloat16),
-        "ln1": stack(lambda lp: lp["ln1"], torch.float32),
-        "ln2": stack(lambda lp: lp["ln2"], torch.float32),
+    matrices = {  # (in, out) = (K, N), as the parameter tree stores them
+        "wqkv": lambda lp: lp["attn"]["wqkv"].reshape(D, 3 * HD),
+        "wo": lambda lp: lp["attn"]["wo"],
+        "wgu": lambda lp: lp["mlp"]["wgu"].reshape(D, 2 * I),
+        "wd": lambda lp: lp["mlp"]["down"],
     }
+    out = {"ln1": stack(lambda lp: lp["ln1"], torch.float32),
+           "ln2": stack(lambda lp: lp["ln2"], torch.float32)}
+    if weight_bits == 0:
+        for name, get in matrices.items():
+            out[name] = stack(lambda lp: get(lp).T, torch.bfloat16)
+        return out
+    if HD != D or I % D or D % 128:
+        raise ValueError("quantized weights need the reference's slab "
+                         "geometry: heads * head_dim == hidden_size, "
+                         "intermediate_size % hidden_size == 0, "
+                         "hidden_size % 128 == 0")
+    gs = D if weight_bits == 8 else int4_group(D)
+    for name, get in matrices.items():
+        qs = [_quantize_matrix(get(lp), gs, weight_bits) for lp in layers]
+        q = [pack_nibbles(q) if weight_bits == 4 else q for q, _ in qs]
+        out[name] = torch.stack(q).contiguous()
+        out["s" + name[1:]] = torch.stack([s for _, s in qs]).contiguous()
+    return out
+
+
+def weight_bits_of(packed: dict, cfg) -> int:
+    """The weight tier of a packed dict, from its type and width."""
+    w = packed["wqkv"]
+    if w.dtype != torch.int8:
+        return 0
+    return 8 if w.shape[-1] == cfg.hidden_size else 4
+
+
+def kv_bits_of(k_cache: torch.Tensor, cfg) -> int:
+    """The cache tier, from its type and width; raises on any other."""
+    tiers = (0, 8, 4) if kv4_packable(cfg) else (0, 8)
+    for bits in tiers:
+        if (k_cache.ndim == 4 and k_cache.shape[-1] == row_width(bits, cfg)
+                and k_cache.dtype == (torch.int8 if bits
+                                      else torch.bfloat16)):
+            return bits
+    HD = cfg.num_attention_heads * cfg.head_dim
+    raise ValueError(
+        f"caches must be (L, B, T, {HD}) bf16, (L, B, T, {HD + KV_PAD}) "
+        f"int8 or, where heads * head_dim % 256 == 0, (L, B, T, "
+        f"{HD // 2 + KV_PAD}) int8, not {tuple(k_cache.shape)} "
+        f"{k_cache.dtype}")
 
 
 def rope_rows(cfg, positions: torch.Tensor):
@@ -96,9 +211,18 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, K) f32 x (N, K) bf16 -> (B, N) f32: bf16 inputs, f32 sums."""
-    return _bf(a) @ w.to(torch.float32).T
+def _mm(a: torch.Tensor, w: torch.Tensor, scale=None) -> torch.Tensor:
+    """(B, K) f32 x (N, K) -> (B, N) f32: bf16 inputs, f32 sums.  ``w`` is
+    bf16, or int8 / nibble-packed with ``scale`` (N, G): the integers widen
+    exactly, and each contraction group's f32 sum is multiplied by its scale
+    (never the weight before the product)."""
+    if scale is None:
+        return _bf(a) @ w.to(torch.float32).T
+    B, K = a.shape
+    N, G = scale.shape
+    part = torch.einsum("bgk,ngk->bgn", _bf(a).reshape(B, G, K // G),
+                        unpack_matrix(w, K).reshape(N, G, K // G))
+    return (part * scale.T[None]).sum(dim=1)
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -118,50 +242,66 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, H: int
     return (xh * cos[:, None, :] + rot * sin[:, None, :]).reshape(B, -1)
 
 
-def variant_of(k_cache: torch.Tensor, cur) -> str:
-    """The variant's name, from the arguments as the reference picks it."""
+def variant_of(k_cache: torch.Tensor, cur, packed=None, cfg=None) -> str:
+    """The variant's name, from the arguments as the reference picks it.
+    The widths that tell kv4 from kv8 rows and int4 from int8 weights come
+    from ``cfg``: without it an int8 cache counts as kv8, and without it or
+    ``packed`` the weights count as bf16."""
     per_slot = isinstance(cur, torch.Tensor) and cur.ndim == 1
-    kv8 = k_cache.dtype == torch.int8
-    return {(False, False): "k1", (True, False): "k2", (False, True): "k3",
-            (True, True): "k2k3"}[(per_slot, kv8)]
+    if cfg is not None:
+        kvb = kv_bits_of(k_cache, cfg)
+    else:
+        kvb = 8 if k_cache.dtype == torch.int8 else 0
+    name = {0: "k2" if per_slot else "k1",
+            8: "k2k3" if per_slot else "k3",
+            4: "k2k6" if per_slot else "k6"}[kvb]
+    wb = 0 if packed is None or cfg is None else weight_bits_of(packed, cfg)
+    return name + {0: "", 8: "k4", 4: "k5"}[wb]
 
 
-def _check_cache_width(k_cache: torch.Tensor, v_cache: torch.Tensor, HD: int):
-    """Raise unless both caches are bf16 HD wide or int8 HD + KV_PAD wide."""
-    for c in (k_cache, v_cache):
-        want = {torch.bfloat16: HD, torch.int8: HD + KV_PAD}.get(c.dtype)
-        if want is None or c.ndim != 4 or c.shape[3] != want:
-            raise ValueError(
-                f"caches must be (L, B, T, {HD}) bf16 or (L, B, T, "
-                f"{HD + KV_PAD}) int8, not {tuple(c.shape)} {c.dtype}")
+def _check_caches(k_cache: torch.Tensor, v_cache: torch.Tensor, cfg) -> int:
+    """The cache tier (0, 8, 4); raises unless both caches are of one."""
+    kvb = kv_bits_of(k_cache, cfg)
+    kv_bits_of(v_cache, cfg)
     if k_cache.dtype != v_cache.dtype or k_cache.shape != v_cache.shape:
         raise ValueError("k and v caches differ in type or shape")
+    return kvb
+
+
+def cache_values(rows: torch.Tensor, cfg) -> torch.Tensor:
+    """The stored values of cache rows (..., W), any tier, as (..., HD) f32
+    in feature order, scales not applied."""
+    HD = cfg.num_attention_heads * cfg.head_dim
+    if rows.dtype == torch.int8 and rows.shape[-1] == row_width(4, cfg):
+        return unpack_nibbles(rows[..., :HD // 2]).to(torch.float32)
+    return rows[..., :HD].to(torch.float32)
 
 
 def attend_plain(q: torch.Tensor, kr: torch.Tensor, vr: torch.Tensor,
                  visible: torch.Tensor, cfg, k_scales=None, v_scales=None,
                  round_p=_bf) -> torch.Tensor:
     """One layer's attention with the kernel's roundings: roped q (B, HD)
-    f32 against cache rows kr/vr (B, Tv, W), bf16 or kv8, under the mask
-    ``visible`` (B, 1, Tv); returns o (B, HD) f32.
+    f32 against cache rows kr/vr (B, Tv, W), bf16, kv8 or kv4, under the
+    mask ``visible`` (B, 1, Tv); returns o (B, HD) f32.
 
     ``k_scales``/``v_scales`` (B, H, Tv) stand in for the scales embedded in
-    kv8 rows and ``round_p`` for the numerator's bf16 rounding: a check that
-    plants a fault in this arithmetic passes them, the step never does.
+    quantized rows and ``round_p`` for the numerator's bf16 rounding: a
+    check that plants a fault in this arithmetic passes them, the step never
+    does.
     """
     H, Dh = cfg.num_attention_heads, cfg.head_dim
     HD, (B, Tv) = H * Dh, kr.shape[:2]
-    kv8 = kr.dtype == torch.int8
+    quant = kr.dtype == torch.int8
     qs = _bf(q * (1.0 / float(np.sqrt(Dh)))).reshape(B, H, Dh)
-    keys = kr[..., :HD].to(torch.float32).reshape(B, Tv, H, Dh)
-    vals = vr[..., :HD].to(torch.float32).reshape(B, Tv, H, Dh)
+    keys = cache_values(kr, cfg).reshape(B, Tv, H, Dh)
+    vals = cache_values(vr, cfg).reshape(B, Tv, H, Dh)
     s = torch.einsum("bhd,bthd->bht", qs, keys)
-    if kv8:  # the key's scale after the product
+    if quant:  # the key's scale after the product
         s = s * (row_scales(kr, cfg).transpose(1, 2) if k_scales is None
                  else k_scales)
     s = torch.where(visible, s, torch.full_like(s, NEG))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    if kv8:  # the value's scale goes into p before its bf16 rounding
+    if quant:  # the value's scale goes into p before its bf16 rounding
         num = round_p(p * (row_scales(vr, cfg).transpose(1, 2)
                            if v_scales is None else v_scales))
     else:
@@ -176,10 +316,10 @@ def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
                       ) -> torch.Tensor:
     """Torch version of the step with the kernel's roundings, all variants.
 
-    emb (B, D); caches (L, B, T, W) bf16 or kv8 int8, row ``cur_b`` of row
-    b written in place; ``cur`` an int, a 0-d tensor or (B,) positions;
-    lo (B,) first visible slot; positions (B,) rope positions.  Returns the
-    pre-final-norm residual (B, D) f32.
+    ``packed`` of any weight tier; emb (B, D); caches (L, B, T, W) bf16,
+    kv8 or kv4, row ``cur_b`` of row b written in place; ``cur`` an int, a
+    0-d tensor or (B,) positions; lo (B,) first visible slot; positions
+    (B,) rope positions.  Returns the pre-final-norm residual (B, D) f32.
 
     With an int ``cur`` attention runs over rows [0, cur]; with a tensor it
     runs over all T rows under the mask [lo_b, cur_b], so that no position
@@ -187,10 +327,14 @@ def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
     """
     H, Dh = cfg.num_attention_heads, cfg.head_dim
     HD, I, eps = H * Dh, cfg.intermediate_size, cfg.rms_norm_eps
-    _check_cache_width(k_cache, v_cache, HD)
-    kv8 = k_cache.dtype == torch.int8
+    quantize = kv_quantizer(_check_caches(k_cache, v_cache, cfg), cfg)
     B, T = emb.shape[0], k_cache.shape[2]
     dev = emb.device
+
+    def mm(a, name, li):
+        scale = packed.get("s" + name[1:])
+        return _mm(a, packed[name][li], None if scale is None else scale[li])
+
     cos, sin = rope_rows(cfg, positions)
     if isinstance(cur, torch.Tensor):
         Tv = T
@@ -204,22 +348,22 @@ def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
                & (t[None, :] <= cur_rows[:, None]))[:, None, :]  # (B, 1, Tv)
     x = emb.to(torch.float32)
     for li in range(packed["wqkv"].shape[0]):
-        qkv = _mm(_rms(x, packed["ln1"][li], eps), packed["wqkv"][li])
+        qkv = mm(_rms(x, packed["ln1"][li], eps), "wqkv", li)
         q = _rope(qkv[:, :HD], cos, sin, H)
         k = _rope(qkv[:, HD:2 * HD], cos, sin, H)
         v = qkv[:, 2 * HD:]
-        if kv8:  # the f32 roped k and the f32 v are quantized
-            k_cache[li, rows, cur_rows] = kv8_quantize(k, cfg)
-            v_cache[li, rows, cur_rows] = kv8_quantize(v, cfg)
+        if quantize:  # the f32 roped k and the f32 v are quantized
+            k_cache[li, rows, cur_rows] = quantize(k, cfg)
+            v_cache[li, rows, cur_rows] = quantize(v, cfg)
         else:
             k_cache[li, rows, cur_rows] = k.to(k_cache.dtype)
             v_cache[li, rows, cur_rows] = v.to(v_cache.dtype)
         o = attend_plain(q, k_cache[li, :, :Tv], v_cache[li, :, :Tv],
                          visible, cfg)
-        x = x + _mm(o, packed["wo"][li])
-        gu = _mm(_rms(x, packed["ln2"][li], eps), packed["wgu"][li])
+        x = x + mm(o, "wo", li)
+        gu = mm(_rms(x, packed["ln2"][li], eps), "wgu", li)
         g, u = gu[:, :I], gu[:, I:]
-        x = x + _mm(g * torch.sigmoid(g) * u, packed["wd"][li])
+        x = x + mm(g * torch.sigmoid(g) * u, "wd", li)
     return x
 
 
@@ -246,7 +390,7 @@ class DecodeStep:
     def _fn(self):
         fn = self.library.get().decode_step_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         return fn
 
@@ -263,30 +407,38 @@ class DecodeStep:
         H, Dh = cfg.num_attention_heads, cfg.head_dim
         D, I = cfg.hidden_size, cfg.intermediate_size
         HD = H * Dh
-        _check_cache_width(k_cache, v_cache, HD)
+        kvb = _check_caches(k_cache, v_cache, cfg)
         L, B, T, W = k_cache.shape
         dev = emb.device
-        want = {"wqkv": (L, 3 * HD, D), "wo": (L, D, HD), "wgu": (L, 2 * I, D),
-                "wd": (L, D, I), "ln1": (L, D), "ln2": (L, D)}
-        for name, shape in want.items():
-            t = packed[name]
-            dt = torch.float32 if name.startswith("ln") else torch.bfloat16
-            if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
-                    or not t.is_contiguous()):
+        wb = weight_bits_of(packed, cfg)
+        # values a byte (or a bf16 element) holds, and rows of a scale group
+        per = 2 if wb == 4 else 1
+        gs = int4_group(D) if wb == 4 else D
+        wdt = torch.int8 if wb else torch.bfloat16
+        shapes = {"wqkv": (3 * HD, D), "wo": (D, HD), "wgu": (2 * I, D),
+                  "wd": (D, I)}
+        want = {"ln1": ((L, D), torch.float32), "ln2": ((L, D), torch.float32)}
+        for name, (N, K) in shapes.items():
+            want[name] = ((L, N, K // per), wdt)
+            if wb:
+                want["s" + name[1:]] = ((L, N, K // gs), torch.float32)
+        for name, (shape, dt) in want.items():
+            t = packed.get(name)
+            if (t is None or tuple(t.shape) != shape or t.dtype != dt
+                    or t.device != dev or not t.is_contiguous()):
                 raise ValueError(f"packed[{name!r}] must be a contiguous "
                                  f"{dt} {shape} tensor on {dev}")
         for c in (k_cache, v_cache):
             if c.device != dev or not c.is_contiguous():
                 raise ValueError(f"caches must be contiguous tensors on {dev}")
-        kv8 = k_cache.dtype == torch.int8
-        if kv8 and 2 * H > KV_PAD:
+        if kvb and 2 * H > KV_PAD:
             raise ValueError("too many heads for the kv-int8 scale lanes")
         if not 1 <= B <= MAX_ROWS:
             raise ValueError(f"the decode step takes 1 to {MAX_ROWS} rows")
         if D % 8 or I % 8 or HD % 8 or 128 % Dh:
             raise ValueError("the decode step needs D, I, HD multiples of 8 "
                              "and Dh dividing 128")
-        variant = variant_of(k_cache, cur)
+        variant = variant_of(k_cache, cur, packed, cfg)
         if isinstance(cur, torch.Tensor):
             if cur.ndim > 1 or (cur.ndim == 1 and cur.shape[0] != B):
                 raise ValueError(f"cur must be one position or (B,) = ({B},)")
@@ -305,14 +457,15 @@ class DecodeStep:
         qkv = torch.empty((B, 3 * HD), dtype=torch.float32, device=dev)
         o = torch.empty((B, HD), dtype=torch.float32, device=dev)
         gu = torch.empty((B, 2 * I), dtype=torch.float32, device=dev)
+        scales = [packed["s" + name[1:]].data_ptr() if wb else None
+                  for name in MATRICES]
         err = self._fn()(
             x.data_ptr(), qkv.data_ptr(), o.data_ptr(), gu.data_ptr(),
-            packed["wqkv"].data_ptr(), packed["wo"].data_ptr(),
-            packed["wgu"].data_ptr(), packed["wd"].data_ptr(),
+            *(packed[name].data_ptr() for name in MATRICES), *scales,
             packed["ln1"].data_ptr(), packed["ln2"].data_ptr(),
             cos.data_ptr(), sin.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), cur32.data_ptr(), lo32.data_ptr(),
-            B, D, H, Dh, I, L, T, int(kv8),
+            B, D, H, Dh, I, L, T, kvb, wb, gs,
             cfg.rms_norm_eps, 1.0 / float(np.sqrt(Dh)),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:

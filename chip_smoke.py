@@ -6,16 +6,19 @@
 1. Builds every CUDA source of ``chattts_tpu_torch/csrc`` with nvcc, one
    process each, all started together, and prints the build seconds.
 2. Holds the decode step kernel (``ops/decode_step.py``) against its plain
-   PyTorch version on the card at the full model width, in its four
-   variants: K1 (bf16 cache, one position), K2 (a position per row), K3
-   (int8 cache with embedded scales), K2+K3.  K1 at B 8, T 512 with
+   PyTorch version on the card at the full model width, in every variant:
+   K1 (bf16 cache, one position), K2 (a position per row), K3 (int8 cache
+   with embedded scales), K2+K3; K4 (int8 weights) and K5 (int4 weights) on
+   the bf16 and int8 caches, K6 (int4 cache) with bf16 weights, K5 on K6,
+   each with one position and per row, and K2+K6+K4, at 8, 16, 32 and 64
+   rows.  K1 at B 8, T 512 with
    ``cur`` at 96, 256 and the last row, and at B 32; the others at B 8, 16
    and 32, one case at T 2560 and, per row, one at the fast engine tier's
    8 x 2304, rows with different ``lo`` and ``cur`` including one visible
    key and the last cache row.  Checked: the final-norm hidden,
    every cache byte outside the appended rows unchanged, the appended row
-   (kv8 rows as bytes, the differing bytes counted against a stated limit,
-   and dequantized within one quantization step).  Times each variant, its
+   (kv8 and kv4 rows as bytes, the differing values counted against a
+   stated limit, and dequantized within one quantization step).  Times each variant, its
    plain version and one yardstick written with torch.matmul and
    scaled_dot_product_attention (``library_ms``; the port never calls it),
    beside the least time the card needs for the same bytes and operations
@@ -23,8 +26,13 @@
 3. Holds every variant against the plain version on one full-width layer
    with the MLP off and wo the identity, so attention's output is compared
    undiluted, and shows that this check rejects planted attention faults:
-   four common ones, a neighbouring head's k or v scale (kv8), and row 0's
-   position used for every row (per-row positions).
+   four common ones, a neighbouring head's k or v scale (kv8, kv4), the
+   two nibbles of every key byte swapped (kv4), and row 0's position used
+   for every row (per-row positions).  Then one full-width layer whose
+   attention is off, so the MLP's output is compared undiluted, for the
+   int8 and int4 weights, with planted faults in the weight scales: the
+   int8 ``down`` scales of a neighbouring contraction group, and one int4
+   group's scales taken from the next group.
 4. Runs ``Chat.load(source="random", seed=0)`` and ``Chat.infer`` at the
    full config on 4 short texts on the Generator, once with ``kv_bits=0``
    (K1) and once with the default int8 cache (K3), with the launch counts
@@ -43,12 +51,21 @@
    texts, on the int8 cache (K2+K3) and on bf16 (K2), with calls of both
    its engines kept and held against the plain version, and K2 timed on
    one of them.
+6. The quantized tiers' main paths, each with the launch counts set to 0
+   just before and read just after, and kept calls held to the plain
+   version: ``Chat.infer`` on the Generator with ``weight_bits=8,
+   kv_bits=8`` (K4 on K3) and with ``weight_bits=4, kv_bits=4`` (K5 on K6);
+   an Engine of 64 slots on ``kv_bits=4, weight_bits=8`` at the capacity
+   geometry's cache (512 + 2048 rows) on 96 seeded requests, more than 32
+   slots live at its peak (K2+K6+K4, timed on a call of that run); and
+   ``Chat.infer`` with ``use_engine=True, weight_bits=8`` (K2+K3+K4).
 
 TF32 is switched off for matmuls and cuDNN convolutions, so float32 math on
 the card is float32.  Exits non-zero without a result line when no CUDA
 device is present or any check fails; the last line is the device JSON.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -73,18 +90,55 @@ ATTN_RTOL, ATTN_ATOL = 2 ** -7, 1e-4
 # planted faults the one-layer check must catch (see _attention_o): four
 # that every variant can have, two of the int8 cache, one of per-row cur
 FAULTS = ("lo_ignored", "lo_plus_one", "cur_not_attended", "p_unrounded")
-FAULTS_KV8 = ("k_scale_of_next_head", "v_scale_of_next_head")
+FAULTS_QUANT = ("k_scale_of_next_head", "v_scale_of_next_head")
+FAULTS_KV4 = ("key_nibbles_swapped",)
 FAULTS_PER_ROW = ("cur_0_for_every_row",)
-# appended kv8 rows, kernel against plain, as bytes: layer 0 quantizes
-# inputs equal to a rounding, so at most 1% of its value bytes may differ
+# one layer's MLP output with quantized weights (see phase_weight_scales):
+# kernel and plain multiply the same integers by the same scales in f32 and
+# differ in the order of sums, and by a bf16 ulp (2^-8) of one of 3072
+# activations where the gate's f32 value rounds the other way; 1e-3 of the
+# value plus 1e-3 of the output's rms is far above both and far below what
+# a wrong scale does
+MLP_RTOL = 1e-3
+# appended kv8 and kv4 rows, kernel against plain, as stored values: layer 0
+# quantizes inputs equal to a rounding, so at most 1% of its values may differ
 # (a value on a rounding tie moves by one); by layer 20 the residual has
 # drifted by about 4e-3 on average against a quantization step of about
 # 2.4e-2, which alone flips about one byte in six, so all layers together
 # are held to 35%
 KV8_DIFF_LAYER0, KV8_DIFF_ALL = 0.01, 0.35
+# On the int4 cache a stored value that the drift moves across a rounding
+# tie moves by a whole step, 1/7 of its head's absmax, and a row that sees n
+# keys feels a flipped value of its own appended row at weight about 1/n.
+# The plain version against itself with emb scaled by 1 + 1e-6 moves a
+# one-key row's hidden by 0.1 to 0.6 and the other rows by 0.02
+# (_kernel_case prints it).  So on kv4 the full-depth hidden and the deeper
+# layers' appended rows are held for rows that see at least this many keys,
+# and every row, whatever it sees, is held layer by layer on equal inputs
+# (_layerwise_case).
+KV4_KEYS_HELD = 16
+# one layer on equal inputs (_layerwise_case): the residual after the layer,
+# O(1); kernel and plain differ by the order of f32 sums and by a bf16 ulp
+# of an o or an activation element, each times a weight of about 0.02
+LAYER_ATOL = 5e-3
 VARIANT_NAMES = {"k1": "k1_decode_step", "k2": "k2_decode_step_per_slot",
                  "k3": "k3_decode_step_kv8",
                  "k2k3": "k2k3_decode_step_per_slot_kv8"}
+# rows of the kernels line beyond those four.  K4, K5 and K6 are rows by
+# feature: their launches are those of every variant whose name holds the
+# feature, their error the largest over those variants' cases, and their
+# times those of the variant named here at K3's shape (B 8, T 512, cur 256)
+FEATURE_ROWS = {"k4": ("k4_decode_step_w8", "k3k4"),
+                "k5": ("k5_decode_step_w4", "k6k5"),
+                "k6": ("k6_decode_step_kv4", "k6")}
+COMBINATION_ROWS = {"k2k6k4": "k2k6k4_decode_step_per_slot_kv4_w8"}
+
+
+def _tier(variant):
+    """(weight_bits, kv_bits, a position per row) of a variant's name."""
+    return (8 if "k4" in variant else 4 if "k5" in variant else 0,
+            4 if "k6" in variant else 8 if "k3" in variant else 0,
+            variant.startswith("k2"))
 
 
 def check(ok: bool, msg: str):
@@ -150,18 +204,46 @@ def _cur_rows(cur, B, dev):
     return torch.full((B,), cur, dtype=torch.long, device=dev)
 
 
+def _library_weights(packed, cfg):
+    """The packed matrices as bf16 for the library yardstick: quantized
+    tiers are dequantized ahead of the timed call (integer times scale,
+    rounded to bf16), so the yardstick reads bf16 weights whatever the
+    tier."""
+    import torch
+    from chattts_tpu_torch.ops.decode_step import (MATRICES, unpack_matrix,
+                                                   weight_bits_of)
+
+    if not weight_bits_of(packed, cfg):
+        return packed
+    out = dict(packed)
+    for name in MATRICES:
+        scale = packed["s" + name[1:]]                     # (L, N, G)
+        K = {"wqkv": cfg.hidden_size, "wgu": cfg.hidden_size,
+             "wo": cfg.num_attention_heads * cfg.head_dim,
+             "wd": cfg.intermediate_size}[name]
+        out[name] = torch.stack([
+            (unpack_matrix(w, K) * s.repeat_interleave(K // s.shape[1], dim=1)
+             ).bfloat16() for w, s in zip(packed[name], scale)])
+    return out
+
+
 def _library_step(packed, emb, kc, vc, cur, lo, positions, cfg):
-    """The same step in torch.matmul + SDPA (timed only, as a yardstick);
-    an int8 cache is dequantized to bf16 for the attention call."""
+    """The same step in torch.matmul + SDPA (timed only, as a yardstick) on
+    bf16 weights (``_library_weights``); a quantized cache is dequantized
+    to bf16 for the attention call."""
     import torch
     import torch.nn.functional as F
-    from chattts_tpu_torch.ops.decode_step import rope_rows
-    from chattts_tpu_torch.ops.kv_quant import kv8_dequantize, kv8_quantize
+    from chattts_tpu_torch.ops import kv_quant
+    from chattts_tpu_torch.ops.decode_step import kv_bits_of, rope_rows
 
     H, Dh, I = cfg.num_attention_heads, cfg.head_dim, cfg.intermediate_size
     HD, eps = H * Dh, cfg.rms_norm_eps
     B, T = emb.shape[0], kc.shape[2]
-    kv8 = kc.dtype == torch.int8
+    quantize, dequantize = {
+        0: (None, None),
+        8: (kv_quant.kv8_quantize, kv_quant.kv8_dequantize),
+        4: (kv_quant.kv4_quantize, kv_quant.kv4_dequantize)}[
+            kv_bits_of(kc, cfg)]
     cos, sin = rope_rows(cfg, positions)
     cos, sin = cos[:, None, :], sin[:, None, :]
     cur_rows = _cur_rows(cur, B, emb.device)
@@ -185,11 +267,11 @@ def _library_step(packed, emb, kc, vc, cur, lo, positions, cfg):
                @ packed["wqkv"][li].T).float()
         q, k = rope(qkv[:, :HD]), rope(qkv[:, HD:2 * HD])
         k, v = k.reshape(B, HD), qkv[:, 2 * HD:]
-        if kv8:
-            kc[li, rows, cur_rows] = kv8_quantize(k, cfg)
-            vc[li, rows, cur_rows] = kv8_quantize(v, cfg)
-            keys = kv8_dequantize(kc[li, :, :Tv], cfg).bfloat16()
-            vals = kv8_dequantize(vc[li, :, :Tv], cfg).bfloat16()
+        if quantize:
+            kc[li, rows, cur_rows] = quantize(k, cfg)
+            vc[li, rows, cur_rows] = quantize(v, cfg)
+            keys = dequantize(kc[li, :, :Tv], cfg).bfloat16()
+            vals = dequantize(vc[li, :, :Tv], cfg).bfloat16()
         else:
             kc[li, rows, cur_rows] = k.bfloat16()
             vc[li, rows, cur_rows] = v.bfloat16()
@@ -205,18 +287,28 @@ def _library_step(packed, emb, kc, vc, cur, lo, positions, cfg):
     return x
 
 
-def _step_bound_ms(cfg, seen, kv8):
+def _step_bound_ms(cfg, seen, kv_bits, weight_bits=0):
     """Least time for one decode step whose row b attends ``seen[b]`` keys:
-    the bytes it must move (weights once, the visible KV rows, the appended
-    rows) against its operations."""
+    the bytes it must move (weights and their scales once, the visible KV
+    rows, the appended rows) against its operations.  Weights take 2, 1 or
+    1/2 bytes a value by tier, with an f32 scale per (D-row group, column)
+    on int8 and per (128-row group, column) on int4; a cache row takes
+    2 HD, HD + 128 or HD/2 + 128 bytes.  The products are bf16 by f32-exact
+    integers on every tier, so the operations go against the bf16 peak."""
+    from chattts_tpu_torch.ops.decode_step import int4_group
     from chattts_tpu_torch.ops.kv_quant import KV_PAD
 
     D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     HD = cfg.num_attention_heads * cfg.head_dim
     B = len(seen)
-    row_bytes = HD + KV_PAD if kv8 else 2 * HD
+    row_bytes = {0: 2 * HD, 8: HD + KV_PAD, 4: HD // 2 + KV_PAD}[kv_bits]
     rows = sum(seen)
-    weight_bytes = L * (4 * D * D + 3 * D * I) * 2 + 2 * L * D * 4
+    values = L * (4 * D * D + 3 * D * I)
+    scale_bytes = {0: 0, 8: L * (3 * HD + D + 2 * I + D * (I // D)) * 4,
+                   4: values // int4_group(D) * 4 if weight_bits == 4 else 0
+                   }[weight_bits]
+    weight_bytes = (values * {0: 4, 8: 2, 4: 1}[weight_bits] // 2
+                    + scale_bytes + 2 * L * D * 4)
     kv_bytes = 2 * L * (rows + B) * row_bytes            # read + append
     io_bytes = 2 * B * D * 4 + 2 * B * cfg.head_dim * 4 + 3 * B * 4
     nbytes = weight_bytes + kv_bytes + io_bytes
@@ -243,65 +335,86 @@ def phase_build():
         print("ptxas:", ln)
 
 
-def _compare_kv8_rows(g, r, cfg, where):
-    """Appended kv8 rows (L, B, W), kernel g against plain r, as bytes.
-    Layer 0 quantizes inputs equal to a rounding: scale bytes equal, every
-    dequantized value within one quantization step, at most KV8_DIFF_LAYER0
-    of its value bytes different.  A deeper layer quantizes a projection of
-    the residual, which may have drifted as the hidden may: its head scales
-    within two mantissa steps (2/64), its values within a step plus
-    HIDDEN_ATOL, its differing bytes counted against KV8_DIFF_ALL.  Pad
-    lanes are zero everywhere.  Returns (differing bytes in layer 0, in all
-    layers, value bytes)."""
+def _compare_quantized_rows(g, r, cfg, where, held):
+    """Appended kv8 or kv4 rows (L, B, W), kernel g against plain r, as
+    bytes.  Layer 0 quantizes inputs equal to a rounding: scale bytes equal
+    but for a head whose absmax sits on a step of the 7-bit mantissa (at
+    most one head in 1000, and one), every dequantized value within one
+    quantization step, at most KV8_DIFF_LAYER0 of its stored values (in
+    heads of equal scale) different.  A deeper layer
+    quantizes a projection of the residual, which may have drifted as the
+    hidden may: its head scales within two mantissa steps (2/64), its values
+    within a step plus HIDDEN_ATOL, its differing values counted against
+    KV8_DIFF_ALL; the deeper layers are held for the rows of ``held`` (B,)
+    only.  Pad lanes are zero everywhere.  Returns (differing values in
+    layer 0, in the held rows of all layers, held values)."""
     import torch
-    from chattts_tpu_torch.ops.kv_quant import kv8_dequantize, row_scales
+    from chattts_tpu_torch.ops.decode_step import cache_values
+    from chattts_tpu_torch.ops.kv_quant import KV_PAD, row_scales
 
     H = cfg.num_attention_heads
-    HD = H * cfg.head_dim
-    check(torch.equal(g[0, :, HD:], r[0, :, HD:]),
-          f"layer 0's appended scale bytes differ ({where})")
-    check(not bool(g[..., HD + 2 * H:].any()),
+    QW = g.shape[-1] - KV_PAD      # value bytes: HD (kv8) or HD/2 (kv4)
+    lanes = g[0, :, QW:QW + 2 * H] != r[0, :, QW:QW + 2 * H]
+    tied0 = lanes[:, :H] | lanes[:, H:]                # (B, H) heads
+    check(int(tied0.sum()) <= max(1, tied0.numel() // 1000),
+          f"{int(tied0.sum())} of {tied0.numel()} appended head scales of "
+          f"layer 0 differ ({where})")
+    check(not bool(g[..., QW + 2 * H:].any()),
           f"pad lanes of the appended row are not zero ({where})")
     sg, sr = row_scales(g, cfg), row_scales(r, cfg)
-    check(bool(((sg - sr).abs() <= sr / 32 * (1 + 1e-6)).all()),
+    check(bool(((sg - sr).abs() <= sr / 32 * (1 + 1e-6))[:, held].all()),
           f"an appended head scale is off by more than 2/64 ({where})")
     step = torch.maximum(sg, sr)[..., None] * (1 + 1e-6)
-    err = (kv8_dequantize(g, cfg) - kv8_dequantize(r, cfg)).abs()
-    err = err.reshape(err.shape[:-1] + (H, -1))
+    vg, vr = cache_values(g, cfg), cache_values(r, cfg)
+    heads = vg.shape[:-1] + (H, -1)
+    err = (vg.reshape(heads) * sg[..., None]
+           - vr.reshape(heads) * sr[..., None]).abs()
     check(bool((err[0] <= step[0]).all()),
-          f"an appended kv8 value of layer 0 is off by more than a step "
-          f"({where}): {float((err[0] / step[0]).max()):.3f} steps")
-    check(bool((err <= step + HIDDEN_ATOL).all()),
-          f"an appended kv8 value is off by more than a step and the "
-          f"hidden's tolerance ({where}): {float((err - step).max()):.4f}")
-    differ = g[..., :HD] != r[..., :HD]
-    n0, n = int(differ[0].sum()), int(differ.sum())
-    check(n0 <= KV8_DIFF_LAYER0 * differ[0].numel(),
-          f"{n0} appended bytes of layer 0 differ ({where})")
+          f"an appended quantized value of layer 0 is off by more than a "
+          f"step ({where}): {float((err[0] / step[0]).max()):.3f} steps")
+    if bool(held.any()):
+        check(bool((err <= step + HIDDEN_ATOL)[:, held].all()),
+              f"an appended quantized value is off by more than a step and "
+              f"the hidden's tolerance ({where}): "
+              f"{float((err - step)[:, held].max()):.4f}")
+    differ0 = (vg[0] != vr[0]).reshape(heads[1:])[~tied0]
+    differ = (vg != vr)[:, held]
+    n0, n = int(differ0.sum()), int(differ.sum())
+    check(n0 <= KV8_DIFF_LAYER0 * differ0.numel(),
+          f"{n0} appended values of layer 0 differ ({where})")
     check(n <= KV8_DIFF_ALL * differ.numel(),
-          f"{n} of {differ.numel()} appended bytes differ ({where})")
+          f"{n} of {differ.numel()} appended values differ ({where})")
     return n0, n, differ.numel()
 
 
-def _compare_step(xk, kk, vk, xp, kp, vp, base_k, base_v, cur, norm, cfg,
+def _compare_step(xk, kk, vk, xp, kp, vp, base_k, base_v, cur, lo, norm, cfg,
                   where):
     """The kernel's step (xk and caches kk/vk) against the plain version's
     on the same inputs (base_k/base_v before the step): final-norm hidden
-    within HIDDEN_ATOL, row cur_b of row b within the row tolerance (kv8:
-    see _compare_kv8_rows), every other byte unchanged.  Returns the
-    hidden's (max-abs, mean-abs) error and the kv8 byte counts (or None)."""
+    within HIDDEN_ATOL, row cur_b of row b within the row tolerance (kv8,
+    kv4: see _compare_quantized_rows), every other byte unchanged.  On the
+    int4 cache the hidden and the deeper layers' rows are held for rows that
+    see at least KV4_KEYS_HELD keys; the others' hidden must be finite.
+    Returns the held rows' (max-abs, mean-abs) hidden error and the
+    quantized rows' counts (or None)."""
     import torch
     from chattts_tpu_torch.models import llama
+    from chattts_tpu_torch.ops.decode_step import kv_bits_of
 
     torch.cuda.synchronize()
-    hk = llama.rms_norm(xk, norm, cfg.rms_norm_eps)
-    hp = llama.rms_norm(xp, norm, cfg.rms_norm_eps)
-    err = float((hk - hp).abs().max())
-    check(bool(torch.isfinite(hk).all()), f"hidden is not finite ({where})")
-    check(err <= HIDDEN_ATOL, f"hidden err {err} ({where})")
     B = xk.shape[0]
     rows = torch.arange(B, device=xk.device)
     cur_rows = _cur_rows(cur, B, xk.device)
+    held = torch.ones(B, dtype=torch.bool, device=xk.device)
+    if kv_bits_of(kk, cfg) == 4:
+        held = (cur_rows - lo.to(xk.device) + 1) >= KV4_KEYS_HELD
+    hk = llama.rms_norm(xk, norm, cfg.rms_norm_eps)
+    hp = llama.rms_norm(xp, norm, cfg.rms_norm_eps)
+    # no row held (the first steps of short prompts): 0, and the caller's
+    # layer-by-layer check is the one that holds
+    err = float((hk - hp)[held].abs().max()) if bool(held.any()) else 0.0
+    check(bool(torch.isfinite(hk).all()), f"hidden is not finite ({where})")
+    check(err <= HIDDEN_ATOL, f"hidden err {err} ({where})")
     keep = torch.ones(kk.shape[:3], dtype=torch.bool, device=xk.device)
     keep[:, rows, cur_rows] = False
     counts = [0, 0, 0]
@@ -310,7 +423,8 @@ def _compare_step(xk, kk, vk, xp, kp, vp, base_k, base_v, cur, norm, cfg,
               f"the kernel wrote outside the appended rows ({where})")
         g, r = got[:, rows, cur_rows], ref[:, rows, cur_rows]
         if got.dtype == torch.int8:
-            for i, c in enumerate(_compare_kv8_rows(g, r, cfg, where)):
+            for i, c in enumerate(_compare_quantized_rows(g, r, cfg, where,
+                                                          held)):
                 counts[i] += c
         else:
             # layer 0 appends values that agree to a rounding; deeper layers
@@ -322,7 +436,8 @@ def _compare_step(xk, kk, vk, xp, kp, vp, base_k, base_v, cur, norm, cfg,
                   f"appended row differs ({where}): per-layer excess over "
                   f"{ROW_RTOL} |ref| is {per_layer}")
     kv8 = tuple(counts) if kk.dtype == torch.int8 else None
-    return err, float((hk - hp).abs().mean()), kv8
+    mean_err = float((hk - hp)[held].abs().mean()) if bool(held.any()) else 0.0
+    return err, mean_err, kv8
 
 
 def _ragged(B, T, gen, per_row, floor=0, cur=None):
@@ -345,11 +460,13 @@ def _ragged(B, T, gen, per_row, floor=0, cur=None):
     return c, torch.full((B,), c), lo
 
 
-def _random_caches(shape, kv8, cfg, gen, dev):
+def _random_caches(shape, kv_bits, cfg, gen, dev):
     """Two seeded standard-normal caches drawn on the card (the seed comes
-    from ``gen``), bf16 or quantized to kv8 rows."""
+    from ``gen``), bf16 or quantized to kv8 or kv4 rows."""
     import torch
-    from chattts_tpu_torch.ops.kv_quant import kv8_quantize
+    from chattts_tpu_torch.ops.kv_quant import kv_quantizer
+
+    quantize = kv_quantizer(kv_bits, cfg)
 
     dgen = torch.Generator(device=dev)
     dgen.manual_seed(int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
@@ -357,15 +474,76 @@ def _random_caches(shape, kv8, cfg, gen, dev):
     for _ in range(2):
         c = torch.randn(shape, generator=dgen, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
-        out.append(kv8_quantize(c, cfg) if kv8 else c)
+        out.append(quantize(c, cfg) if quantize else c)
     return out
 
 
-def _kernel_case(variant, cfg, packed, norm, B, T, gen, dev, cur=None):
+def _layerwise_case(variant, cfg, packed, emb, base_k, base_v, cur, lo, pos,
+                    where):
+    """Every layer of a case on equal inputs: layer l of the kernel (a
+    one-layer step on layer l's weights and cache) against layer l of the
+    plain version, both given the plain chain's residual before that layer.
+    With equal inputs an appended value or scale byte differs only on a
+    rounding tie (a value on a half, a head's absmax on a step of the scale's
+    7-bit mantissa), so every row is held, whatever it sees: the residual
+    after the layer within LAYER_ATOL, or within HIDDEN_ATOL for a row whose
+    appended row did land on a tie.  Ties are counted: at most 1 value in
+    10^4 (in rows whose scale bytes agree) and 1 scale byte in 10^3.
+    Returns the sentence for the case's line."""
+    import dataclasses
+
+    import torch
+    from chattts_tpu_torch.ops.decode_step import (cache_values, decode_step,
+                                                   decode_step_plain)
+    from chattts_tpu_torch.ops.kv_quant import KV_PAD
+
+    one = dataclasses.replace(cfg, num_hidden_layers=1)
+    B = emb.shape[0]
+    rows = torch.arange(B, device=emb.device)
+    cur_rows = _cur_rows(cur, B, emb.device)
+    x = emb.float()
+    worst, ties, values, scale_ties, scales = 0.0, 0, 0, 0, 0
+    for li in range(cfg.num_hidden_layers):
+        sub = {name: t[li:li + 1] for name, t in packed.items()}
+        caches = [c[li:li + 1].clone() for c in (base_k, base_v, base_k,
+                                                 base_v)]
+        xk = decode_step(sub, x, caches[0], caches[1], cur, lo, pos, one)
+        xp = decode_step_plain(sub, x, caches[2], caches[3], cur, lo, pos, one)
+        tied = torch.zeros(B, dtype=torch.bool, device=emb.device)
+        for got, ref in ((caches[0], caches[2]), (caches[1], caches[3])):
+            g, r = got[0, rows, cur_rows], ref[0, rows, cur_rows]
+            QW = g.shape[-1] - KV_PAD
+            off = g[:, QW:] != r[:, QW:]
+            scale_ties += int(off.sum())
+            scales += 2 * cfg.num_attention_heads * B
+            differ = cache_values(g, one) != cache_values(r, one)
+            tied |= differ.any(dim=1) | off.any(dim=1)
+            ties += int(differ[~off.any(dim=1)].sum())
+            values += differ.numel()
+        err = (xk - xp).abs().amax(dim=1)
+        check(bool(torch.isfinite(xk).all()) and bool(
+            (err <= torch.where(tied, HIDDEN_ATOL, LAYER_ATOL)).all()),
+            f"layer {li} differs on equal inputs ({where}): per-row max-abs "
+            f"{[round(float(e), 5) for e in err]}, rows with a tie "
+            f"{tied.tolist()}")
+        worst = max(worst, float(err[~tied].max()) if bool((~tied).any())
+                    else 0.0)
+        x = xp
+    check(ties <= max(2, values // 10_000)
+          and scale_ties <= max(2, scales // 1000),
+          f"{ties} of {values} appended values and {scale_ties} of {scales} "
+          f"scale bytes differ on equal inputs ({where})")
+    return (f"layer by layer on equal inputs: residual max-abs {worst:.3e} "
+            f"(limit {LAYER_ATOL}), {ties} of {values} appended values and "
+            f"{scale_ties} of {scales} scale bytes on a tie")
+
+
+def _kernel_case(variant, cfg, packs, norm, B, T, gen, dev, cur=None):
     """One full-width case of a variant against the plain version (``cur``:
-    the shared position of a scalar-cur variant, mid-cache unless given);
-    returns the hidden's max-abs error.  The library yardstick's distance
-    from the plain version is printed beside it, and held to nothing."""
+    the shared position of a scalar-cur variant, mid-cache unless given;
+    ``packs``: the packed weights by weight_bits); returns the hidden's
+    max-abs error.  The library yardstick's distance from the plain version
+    is printed beside it, and held to nothing."""
     import torch
     from chattts_tpu_torch.models import llama
     from chattts_tpu_torch.ops.decode_step import (decode_step,
@@ -373,10 +551,11 @@ def _kernel_case(variant, cfg, packed, norm, B, T, gen, dev, cur=None):
 
     L, D = cfg.num_hidden_layers, cfg.hidden_size
     HD = cfg.num_attention_heads * cfg.head_dim
-    base_k, base_v = _random_caches((L, B, T, HD), "k3" in variant, cfg, gen,
-                                    dev)
+    weight_bits, kv_bits, per_row = _tier(variant)
+    packed = packs[weight_bits]
+    base_k, base_v = _random_caches((L, B, T, HD), kv_bits, cfg, gen, dev)
     emb = (torch.randn((B, D), generator=gen) * 0.3).to(dev)
-    cur, cur_rows, lo = _ragged(B, T, gen, "k2" in variant, cur=cur)
+    cur, cur_rows, lo = _ragged(B, T, gen, per_row, cur=cur)
     cur = cur.to(dev) if isinstance(cur, torch.Tensor) else cur
     cur_rows, lo = cur_rows.to(dev), lo.to(dev)
     pos = cur_rows - lo
@@ -386,16 +565,32 @@ def _kernel_case(variant, cfg, packed, norm, B, T, gen, dev, cur=None):
     xp = decode_step_plain(packed, emb, kp, vp, cur, lo, pos, cfg)
     where = f"{variant}, B {B}, T {T}"
     err, mean_err, kv8 = _compare_step(xk, kk, vk, xp, kp, vp, base_k,
-                                       base_v, cur, norm, cfg, where)
+                                       base_v, cur, lo, norm, cfg, where)
     note = ""
     if kv8 is not None:
-        note = (f"; appended kv8 value bytes that differ: {kv8[0]} in layer "
+        note = (f"; appended quantized values that differ: {kv8[0]} in layer "
                 f"0, {kv8[1]} of {kv8[2]} in all (limits "
                 f"{KV8_DIFF_LAYER0:.0%} and {KV8_DIFF_ALL:.0%})")
-    xl = _library_step(packed, emb, base_k.clone(), base_v.clone(), cur, lo,
-                       pos, cfg)
+    xl = _library_step(_library_weights(packed, cfg), emb, base_k.clone(),
+                       base_v.clone(), cur, lo, pos, cfg)
     lib = float((llama.rms_norm(xl, norm, cfg.rms_norm_eps)
                  - llama.rms_norm(xp, norm, cfg.rms_norm_eps)).abs().max())
+    if kv_bits == 4:
+        seen = cur_rows - lo + 1
+        few = seen < KV4_KEYS_HELD
+        note += (f"; {int(few.sum())} rows see fewer than {KV4_KEYS_HELD} "
+                 f"keys and are held layer by layer only")
+        if B == 8:  # how far a one-key row moves under a perturbation
+            xs = decode_step_plain(packed, emb * (1 + 1e-6), base_k.clone(),
+                                   base_v.clone(), cur, lo, pos, cfg)
+            d = (llama.rms_norm(xs, norm, cfg.rms_norm_eps)
+                 - llama.rms_norm(xp, norm, cfg.rms_norm_eps)).abs().amax(1)
+            print(f"{variant} plain against itself with emb scaled by 1 + "
+                  f"1e-6: rows that see fewer than {KV4_KEYS_HELD} keys move "
+                  f"by {float(d[few].max()) if bool(few.any()) else 0.0:.3e}, "
+                  f"the others by {float(d[~few].max()):.3e}")
+        note += "; " + _layerwise_case(variant, cfg, packed, emb, base_k,
+                                       base_v, cur, lo, pos, where)
     print(f"{variant} vs plain: B {B}, T {T}, cur {int(cur_rows.min())}.."
           f"{int(cur_rows.max())}, visible keys "
           f"{int((cur_rows - lo + 1).min())}..{int((cur_rows - lo + 1).max())}"
@@ -413,17 +608,22 @@ def _time_call(variant, cfg, packed, emb, kk, vk, cur, lo, pos, what,
     from chattts_tpu_torch.ops.decode_step import (decode_step,
                                                    decode_step_plain)
 
+    from chattts_tpu_torch.ops.decode_step import kv_bits_of, weight_bits_of
+
     B, T = emb.shape[0], kk.shape[2]
     ms = _time_ms(lambda: decode_step(packed, emb, kk, vk, cur, lo, pos, cfg))
     plain_ms = _time_ms(lambda: decode_step_plain(packed, emb, kk, vk, cur,
                                                   lo, pos, cfg), iters=5)
-    lib_ms = _time_ms(lambda: _library_step(packed, emb, kk, vk, cur, lo,
-                                            pos, cfg), iters=5)
+    lib = _library_weights(packed, cfg)
+    lib_ms = _time_ms(lambda: _library_step(lib, emb, kk, vk, cur, lo, pos,
+                                            cfg), iters=5)
+    del lib
     cur_rows = _cur_rows(cur, B, emb.device)
     # a row whose window is empty (a slot that holds no request) reads no key
     seen = (cur_rows - lo.to(emb.device) + 1).clamp(min=0)
     bound_ms, bound_by = _step_bound_ms(cfg, seen.tolist(),
-                                        kk.dtype == torch.int8)
+                                        kv_bits_of(kk, cfg),
+                                        weight_bits_of(packed, cfg))
     if profile:
         device_s, _, rows = _device_profile(lambda: [decode_step(
             packed, emb, kk, vk, cur, lo, pos, cfg) for _ in range(5)])
@@ -436,13 +636,15 @@ def _time_call(variant, cfg, packed, emb, kk, vk, cur, lo, pos, what,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _time_variant(variant, cfg, packed, B, T, cur, cur_rows, lo, gen, dev):
+def _time_variant(variant, cfg, packs, B, T, cur, cur_rows, lo, gen, dev):
     """``_time_call`` of a variant on seeded caches of one shape."""
     import torch
 
     L, D = cfg.num_hidden_layers, cfg.hidden_size
     HD = cfg.num_attention_heads * cfg.head_dim
-    kk, vk = _random_caches((L, B, T, HD), "k3" in variant, cfg, gen, dev)
+    weight_bits, kv_bits, _ = _tier(variant)
+    packed = packs[weight_bits]
+    kk, vk = _random_caches((L, B, T, HD), kv_bits, cfg, gen, dev)
     emb = (torch.randn((B, D), generator=gen) * 0.3).to(dev)
     cur = cur.to(dev) if isinstance(cur, torch.Tensor) else cur
     cur_rows, lo = cur_rows.to(dev), lo.to(dev)
@@ -452,57 +654,75 @@ def _time_variant(variant, cfg, packed, B, T, cur, cur_rows, lo, gen, dev):
 
 def phase_kernel(dev):
     """Every variant against its plain version at the full width, and its
-    times.  Returns {variant: entry of the kernels line}."""
+    times.  Returns {row: entry of the kernels line}."""
     import torch
     from chattts_tpu_torch.config import Config
     from chattts_tpu_torch.models import llama
-    from chattts_tpu_torch.ops.decode_step import pack_weights
+    from chattts_tpu_torch.ops.decode_step import VARIANTS, pack_weights
     from chattts_tpu_torch.weights import to_device
 
     cfg = Config().gpt
     gen = torch.Generator().manual_seed(1)
     params = to_device(llama.init_params(gen, cfg), dev)
-    packed = pack_weights(params, cfg)
+    packs = {bits: pack_weights(params, cfg, weight_bits=bits)
+             for bits in (0, 8, 4)}
     norm = params["norm"]
-    worst = dict.fromkeys(VARIANT_NAMES, 0.0)
-    for cur in (96, 256, 511):
-        worst["k1"] = max(worst["k1"], _kernel_case(
-            "k1", cfg, packed, norm, 8, 512, gen, dev, cur=cur))
+    worst = dict.fromkeys(VARIANTS, 0.0)
 
-    # the new variants: B 8 and 32 at T 512, B 16 at the capacity tier's
-    # cache length; K1 once more at 32 rows (the lifted row limit)
+    def case(variant, B, T, **kw):
+        worst[variant] = max(worst[variant], _kernel_case(
+            variant, cfg, packs, norm, B, T, gen, dev, **kw))
+
+    for cur in (96, 256, 511):
+        case("k1", 8, 512, cur=cur)
+    # K2, K3, K2+K3: B 8 and 32 at T 512, B 16 at the capacity tier's cache
+    # length; K1 once more at 32 rows
     for variant in ("k2", "k3", "k2k3"):
         for Bv, Tv in ((8, 512), (16, 2560), (32, 512)):
-            worst[variant] = max(worst[variant], _kernel_case(
-                variant, cfg, packed, norm, Bv, Tv, gen, dev))
+            case(variant, Bv, Tv)
     # the facade's fast engine tier: 8 slots on a 2304-row cache
     for variant in ("k2", "k2k3"):
-        worst[variant] = max(worst[variant], _kernel_case(
-            variant, cfg, packed, norm, 8, 2304, gen, dev))
-    worst["k1"] = max(worst["k1"], _kernel_case("k1", cfg, packed, norm, 32,
-                                                512, gen, dev))
+        case(variant, 8, 2304)
+    case("k1", 32, 512)
+    # the quantized tiers: K4 and K5 on the bf16 and kv8 caches, K6 with
+    # bf16 weights, K5 on K6, each with one position and per row, and the
+    # 64-slot engine's K2+K6+K4; 8, 16, 32 and 64 rows (two row halves of
+    # the gemv), the 16-row case on the capacity tier's 2560-row cache
+    for variant in ("k1k4", "k2k4", "k3k4", "k2k3k4", "k1k5", "k2k5", "k3k5",
+                    "k2k3k5", "k6", "k2k6", "k6k5", "k2k6k5", "k2k6k4"):
+        for Bv, Tv in ((8, 512), (16, 2560), (32, 512), (64, 512)):
+            case(variant, Bv, Tv)
+    # the earlier variants on the second row half
+    for variant in ("k1", "k2k3"):
+        case(variant, 64, 512)
 
     # times: the scalar-cur variants at the Generator's shape of phase 4's
     # kind (B 8, T 512, cur 256), K2+K3 at the engine phase's (16 slots,
-    # T 2560, 100..200 prompt tokens and 0..255 generated); K2 is timed in
-    # phase 5, on a call its own run made
+    # T 2560, 100..200 prompt tokens and 0..255 generated); K2 and K2+K6+K4
+    # are timed in the engine phases, on calls their own runs made
     entries = {}
     tgen = torch.Generator().manual_seed(5)
     cur_e = 512 + torch.randint(0, 256, (16,), generator=tgen)
     lo_e = 512 - torch.randint(100, 201, (16,), generator=tgen)
     lo_g = torch.tensor([0, 0, 3, 5, 0, 17, 1, 64])
-    shapes = {"k1": (8, 512, 256, torch.full((8,), 256), lo_g),
-              "k3": (8, 512, 256, torch.full((8,), 256), lo_g),
-              "k2k3": (16, 2560, cur_e, cur_e, lo_e)}
-    for variant in VARIANT_NAMES:
-        entries[variant] = {
-            "name": VARIANT_NAMES[variant], "route": "cuda",
+    generator_shape = (8, 512, 256, torch.full((8,), 256), lo_g)
+    rows = {v: (name, v) for v, name in VARIANT_NAMES.items()}
+    rows.update(FEATURE_ROWS)
+    rows.update({v: (name, None) for v, name in COMBINATION_ROWS.items()})
+    for row, (name, timed) in rows.items():
+        entries[row] = {
+            "name": name, "route": "cuda",
             "source": "chattts_tpu_torch/csrc/decode_step.cu",
             "replaces": "chattts_tpu/ops/pallas_step.py:268",
-            "max_abs_err": worst[variant]}
-        if variant in shapes:
-            entries[variant].update(_time_variant(
-                variant, cfg, packed, *shapes[variant], gen, dev))
+            "max_abs_err": max(e for v, e in worst.items()
+                               if (row in v if row in FEATURE_ROWS
+                                   else row == v))}
+        if timed == "k2k3":
+            entries[row].update(_time_variant(
+                timed, cfg, packs, 16, 2560, cur_e, cur_e, lo_e, gen, dev))
+        elif timed not in (None, "k2"):
+            entries[row].update(_time_variant(
+                timed, cfg, packs, *generator_shape, gen, dev))
     return entries
 
 
@@ -512,12 +732,13 @@ def _attention_o(packed, emb, kc, vc, cur, lo, positions, cfg, fault=None):
     planted fault or none; kc/vc get row cur_b of row b."""
     import torch
     from chattts_tpu_torch.ops.decode_step import (_mm, _rms, _rope,
-                                                   attend_plain, rope_rows)
-    from chattts_tpu_torch.ops.kv_quant import kv8_quantize, row_scales
+                                                   attend_plain, kv_bits_of,
+                                                   rope_rows)
+    from chattts_tpu_torch.ops.kv_quant import kv_quantizer, row_scales
 
     H = cfg.num_attention_heads
     HD, B, T = H * cfg.head_dim, emb.shape[0], kc.shape[2]
-    kv8 = kc.dtype == torch.int8
+    quantize = kv_quantizer(kv_bits_of(kc, cfg), cfg)
     cos, sin = rope_rows(cfg, positions)
     qkv = _mm(_rms(emb.float(), packed["ln1"][0], cfg.rms_norm_eps),
               packed["wqkv"][0])
@@ -528,8 +749,8 @@ def _attention_o(packed, emb, kc, vc, cur, lo, positions, cfg, fault=None):
     if fault == "cur_0_for_every_row":
         cur_rows = cur_rows[:1].expand(B)
     rows = torch.arange(B, device=emb.device)
-    kc[0, rows, cur_rows] = kv8_quantize(k, cfg) if kv8 else k.bfloat16()
-    vc[0, rows, cur_rows] = kv8_quantize(v, cfg) if kv8 else v.bfloat16()
+    kc[0, rows, cur_rows] = quantize(k, cfg) if quantize else k.bfloat16()
+    vc[0, rows, cur_rows] = quantize(v, cfg) if quantize else v.bfloat16()
     first = {"lo_ignored": torch.zeros_like(lo),
              "lo_plus_one": lo + 1}.get(fault, lo)
     t = torch.arange(T, device=emb.device)
@@ -543,7 +764,13 @@ def _attention_o(packed, emb, kc, vc, cur, lo, positions, cfg, fault=None):
         hooks["v_scales"] = row_scales(vc[0], cfg).transpose(1, 2).roll(-1, 1)
     if fault == "p_unrounded":
         hooks["round_p"] = lambda p: p
-    return attend_plain(q, kc[0], vc[0], visible[:, None, :], cfg, **hooks)
+    keys = kc[0]
+    if fault == "key_nibbles_swapped":  # of every value byte of a kv4 row
+        b = keys[..., :HD // 2].to(torch.int32)
+        swapped = ((b & 15) << 4) | ((b >> 4) & 15)
+        keys = torch.cat([((swapped << 24) >> 24).to(torch.int8),
+                          keys[..., HD // 2:]], dim=-1)
+    return attend_plain(q, keys, vc[0], visible[:, None, :], cfg, **hooks)
 
 
 def phase_attention(dev):
@@ -562,7 +789,7 @@ def phase_attention(dev):
     from chattts_tpu_torch.ops.decode_step import (decode_step,
                                                    decode_step_plain,
                                                    pack_weights)
-    from chattts_tpu_torch.ops.kv_quant import kv8_quantize
+    from chattts_tpu_torch.ops.kv_quant import kv_quantizer
     from chattts_tpu_torch.weights import to_device
 
     cfg = dataclasses.replace(Config().gpt, num_hidden_layers=1)
@@ -586,7 +813,7 @@ def phase_attention(dev):
 
     cases = [("k1", cur, lo_k1) for cur in (96, T // 2, T - 1)]
     pgen = torch.Generator().manual_seed(6)
-    for variant in ("k2", "k3", "k2k3"):
+    for variant in ("k2", "k3", "k2k3", "k6", "k2k6"):
         cur, _, lo = _ragged(B, T, pgen, "k2" in variant, floor=8)
         if "k2" not in variant:
             lo[0] = cur - 1  # two visible keys: lo + 1 still leaves one
@@ -596,9 +823,10 @@ def phase_attention(dev):
         cases.append((variant, cur, lo.to(dev)))
     worst = 0.0
     for variant, cur, lo in cases:
-        kv8 = "k3" in variant
-        base_k = kv8_quantize(bf_k, cfg) if kv8 else bf_k
-        base_v = kv8_quantize(bf_v, cfg) if kv8 else bf_v
+        kv_bits = _tier(variant)[1]
+        quantize = kv_quantizer(kv_bits, cfg)
+        base_k = quantize(bf_k, cfg) if quantize else bf_k
+        base_v = quantize(bf_v, cfg) if quantize else bf_v
         pos = _cur_rows(cur, B, dev) - lo
         step = {}
         for name, fn in (("kernel", decode_step), ("plain", decode_step_plain)):
@@ -612,7 +840,8 @@ def phase_attention(dev):
                 cfg, fault))) - emb, want)
 
         kern, sane = reading(step["kernel"], want), copy_reading()
-        names = (FAULTS + (FAULTS_KV8 if kv8 else ())
+        names = (FAULTS + (FAULTS_QUANT if kv_bits else ())
+                 + (FAULTS_KV4 if kv_bits == 4 else ())
                  + (FAULTS_PER_ROW if "k2" in variant else ()))
         faults = {f: copy_reading(f) for f in names}
         where = f"cur {cur}" if isinstance(cur, int) else "ragged cur"
@@ -625,6 +854,87 @@ def phase_attention(dev):
             check(r > 1.0, f"the one-layer check misses fault {f} of "
                   f"{variant} ({r})")
         worst = max(worst, kern)
+    return worst
+
+
+def phase_weight_scales(dev):
+    """The int8 and int4 weights on one full-width layer whose attention is
+    off (wo zero), so the step adds exactly the MLP's output to the
+    residual and the weight scales are seen undiluted: the kernel against
+    the plain version, then the plain version against copies of itself with
+    a planted fault in the scales, each of which the same check must
+    reject.  A reading is max |got - want| / (MLP_RTOL (|want| + rms
+    want)), passing at <= 1."""
+    import dataclasses
+
+    import torch
+    from chattts_tpu_torch.config import Config
+    from chattts_tpu_torch.models import llama
+    from chattts_tpu_torch.ops.decode_step import (decode_step,
+                                                   decode_step_plain,
+                                                   pack_weights)
+    from chattts_tpu_torch.weights import to_device
+
+    cfg = dataclasses.replace(Config().gpt, num_hidden_layers=1)
+    B, T, D = 8, 512, cfg.hidden_size
+    HD = cfg.num_attention_heads * cfg.head_dim
+    gen = torch.Generator().manual_seed(3)
+    params = to_device(llama.init_params(gen, cfg), dev)
+    kc = torch.randn((1, B, T, HD), generator=gen).bfloat16().to(dev)
+    vc = torch.randn((1, B, T, HD), generator=gen).bfloat16().to(dev)
+    emb = (torch.randn((B, D), generator=gen) * 0.3).to(dev)
+    lo = torch.tensor([0, 0, 3, 5, 0, 17, 1, 64], device=dev)
+    cur = T // 2
+    pos = cur - lo
+
+    def mlp(fn, packed):
+        return fn(packed, emb, kc.clone(), vc.clone(), cur, lo, pos, cfg) - emb
+
+    def reading(got, want):
+        lim = MLP_RTOL * (want.abs() + want.pow(2).mean().sqrt())
+        r = ((got - want).abs() / lim).max()
+        return float(r) if bool(torch.isfinite(r)) else float("inf")
+
+    def faulted(packed, fault):
+        bad = dict(packed)
+        if fault == "down_scale_of_next_group":     # int8: I/D groups of D
+            bad["sd"] = packed["sd"].roll(-1, dims=2)
+        elif fault == "down_scale_of_group_0":      # one scale a column
+            bad["sd"] = packed["sd"][:, :, :1].expand_as(
+                packed["sd"]).contiguous()
+        elif fault == "one_group_scale_of_next_group":  # int4: groups of 128
+            bad["sgu"] = packed["sgu"].clone()
+            bad["sgu"][:, :, 2] = packed["sgu"][:, :, 3]
+        else:
+            raise ValueError(fault)
+        return bad
+
+    faults = {8: ("down_scale_of_next_group", "down_scale_of_group_0"),
+              4: ("one_group_scale_of_next_group",)}
+    worst = {}
+    for bits, variant in ((8, "k1k4"), (4, "k1k5")):
+        packed = pack_weights(params, cfg, weight_bits=bits)
+        packed["wo"].zero_()
+        check(packed["sd"].shape[2] == cfg.intermediate_size // (
+            D if bits == 8 else 128), f"sd is {tuple(packed['sd'].shape)}")
+        want = mlp(decode_step_plain, packed)
+        kern = reading(mlp(decode_step, packed), want)
+        planted = {f: reading(mlp(decode_step_plain, faulted(packed, f)), want)
+                   for f in faults[bits]}
+        # the kernel reads the scales it is given: the same fault in its
+        # input moves its output as it moves the plain version's
+        kern_faulted = reading(
+            mlp(decode_step, faulted(packed, faults[bits][0])), want)
+        print(f"{variant} one layer, MLP undiluted: kernel reading "
+              f"{kern:.3e} (limit 1), planted "
+              + ", ".join(f"{f} {r:.3e}" for f, r in planted.items())
+              + f"; kernel given {faults[bits][0]}: {kern_faulted:.3e}")
+        check(kern <= 1.0, f"{variant} MLP differs: {kern}")
+        for f, r in planted.items():
+            check(r > 1.0, f"the one-layer check misses fault {f} ({r})")
+        check(kern_faulted > 1.0,
+              f"the {variant} kernel ignores its scales ({kern_faulted})")
+        worst[variant] = kern
     return worst
 
 
@@ -661,21 +971,28 @@ def check_kept_calls(packed, norm, cfg, kept, what, at_least):
     inputs: the batch, cache, positions and left padding of the run.
     Returns the largest hidden error."""
     from chattts_tpu_torch.ops.decode_step import (decode_step_plain,
-                                                   variant_of)
+                                                   kv_bits_of, variant_of)
 
     worst = 0.0
     for (emb, kc0, vc0, cur, lo, pos), xk, kk, vk in kept:
         kp, vp = kc0.clone(), vc0.clone()
         xp = decode_step_plain(packed, emb, kp, vp, cur, lo, pos, cfg)
         cur_rows = _cur_rows(cur, emb.shape[0], emb.device)
-        where = (f"{what}, {variant_of(kc0, cur)}, B {emb.shape[0]}, "
+        where = (f"{what}, {variant_of(kc0, cur, packed, cfg)}, "
+                 f"B {emb.shape[0]}, "
                  f"T {kc0.shape[2]}, cur {int(cur_rows.min())}.."
                  f"{int(cur_rows.max())}, lo {int(lo.min())}..{int(lo.max())}")
         err, mean_err, kv8 = _compare_step(xk, kk, vk, xp, kp, vp, kc0, vc0,
-                                           cur, norm, cfg, where)
+                                           cur, lo, norm, cfg, where)
         note = "" if kv8 is None else (
-            f"; appended kv8 bytes that differ: {kv8[0]} in layer 0, "
+            f"; appended quantized values that differ: {kv8[0]} in layer 0, "
             f"{kv8[1]} of {kv8[2]}")
+        if kv_bits_of(kc0, cfg) == 4:
+            seen = cur_rows - lo + 1
+            note += (f"; {int((seen < KV4_KEYS_HELD).sum())} rows see fewer "
+                     f"than {KV4_KEYS_HELD} keys; " + _layerwise_case(
+                         variant_of(kc0, cur, packed, cfg), cfg, packed, emb,
+                         kc0, vc0, cur, lo, pos, where))
         print(f"kept call vs plain in {where}: hidden max-abs {err:.3e}, "
               f"mean-abs {mean_err:.3e}{note}")
         worst = max(worst, err)
@@ -721,17 +1038,17 @@ def _check_wavs(wavs):
         check(bool(np.isfinite(w).all()), "waveform is not finite")
 
 
-def phase_infer(chat, kv_bits, max_new, profile):
-    """``Chat.infer`` on the Generator with the given cache tier: 4 texts,
-    the launch counts read around it, kept calls checked.  Returns the
-    launches of the tier's variant (k1 or k3) and the kept calls' largest
-    hidden error."""
+def phase_infer(chat, variant, max_new, profile):
+    """``Chat.infer`` on the Generator of ``chat``, whose tiers make every
+    step the given variant: 4 texts, the launch counts read around it, kept
+    calls checked.  Returns the launches by variant and the kept calls'
+    largest hidden error."""
     import torch
     from chattts_tpu_torch import Chat
     from chattts_tpu_torch.engine import generate as gen_mod
     from chattts_tpu_torch.ops.decode_step import decode_step
 
-    variant = "k3" if kv_bits else "k1"
+    title = f"infer weight_bits={chat.weight_bits} kv_bits={chat.kv_bits}"
     steps = []
     generate = chat.generator.generate
 
@@ -791,8 +1108,7 @@ def phase_infer(chat, kv_bits, max_new, profile):
     counts = dict(decode_step.variant_launches)
     launches = counts[variant]
     kept_err = check_kept_calls(chat.packed, chat.gpt_params["norm"],
-                                chat.config.gpt, keeper.kept,
-                                f"infer kv_bits={kv_bits}", 2)
+                                chat.config.gpt, keeper.kept, title, 2)
 
     n_steps = sum(steps)
     _check_wavs(wavs)
@@ -801,7 +1117,7 @@ def phase_infer(chat, kv_bits, max_new, profile):
           f"{variant} launched {launches} times for {n_steps} decode steps "
           f"(all variants: {counts})")
     audio_s = sum(w.size for w in wavs) / chat.config.vocos.mel.sample_rate
-    print(f"infer kv_bits={kv_bits}: 4 texts, steps per pass {steps}, wall "
+    print(f"{title}: 4 texts, steps per pass {steps}, wall "
           f"{wall:.3f} s, {n_steps / wall:.1f} steps/s, audio {audio_s:.2f} s, "
           f"audio s / wall s {audio_s / wall:.3f}, {variant} launches "
           f"{launches}")
@@ -810,34 +1126,36 @@ def phase_infer(chat, kv_bits, max_new, profile):
         check_decode_on_cpu(chat, *decoded[-1])
         # the same request again under the profiler
         device_s, prof_wall, rows = _device_profile(run)
-        _print_profile(f"infer kv_bits={kv_bits} profile", device_s, rows)
-        print(f"infer kv_bits={kv_bits}: card busy {device_s:.3f} s of the "
+        _print_profile(f"{title} profile", device_s, rows)
+        print(f"{title}: card busy {device_s:.3f} s of the "
               f"profiled run's {prof_wall:.3f} s wall "
               f"({100 * device_s / prof_wall:.1f}%; unprofiled wall "
               f"{wall:.3f} s)")
     chat.generator.generate = generate
-    return launches, kept_err
+    return counts, kept_err
 
 
-def _engine_requests(cfg):
-    """24 seeded code-mode requests: prompts of 20-200 tokens, max_new
-    64-256, min_new 32; requests 3 and 20 are twins (same seed, prompt and
-    knobs), admitted in different waves of a 16-slot engine."""
+def _engine_requests(cfg, n=24):
+    """``n`` seeded code-mode requests: prompts of 20-200 tokens, max_new
+    64-256, min_new 32; requests 3 and n - 4 are twins (same seed, prompt
+    and knobs), admitted in different waves of an engine of at most n - 4
+    slots."""
     import numpy as np
     from chattts_tpu_torch.engine.batching import EngineRequest
 
     rng = np.random.default_rng(7)
     reqs = []
-    for i in range(24):
-        n = int(rng.integers(20, 201))
+    for i in range(n):
+        plen = int(rng.integers(20, 201))
         spec = dict(
             ids=np.repeat(rng.integers(5, cfg.num_text_tokens - 200,
-                                       (n, 1)), cfg.num_vq, 1).astype(np.int32),
-            text_mask=np.ones((n,), bool),
+                                       (plen, 1)), cfg.num_vq, 1
+                          ).astype(np.int32),
+            text_mask=np.ones((plen,), bool),
             temperature=np.full((cfg.num_vq,), 0.3, np.float32),
             top_p=0.7, top_k=20, repetition_penalty=1.05, min_new=32,
             max_new=int(rng.integers(64, 257)), seed=1000 + i)
-        if i == 20:
+        if i == n - 4:
             spec = {k: v for k, v in reqs[3].__dict__.items()
                     if k in spec}
         reqs.append(EngineRequest(request_id=f"e{i}", **spec))
@@ -864,10 +1182,11 @@ def _check_engine_outputs(outs, reqs, cfg):
               f"{o.request_id}: hiddens {tuple(hid.shape)} or not finite")
 
 
-def _engine_run(eng, reqs, want):
+def _engine_run(eng, reqs, want, variant="k2k3"):
     """``eng.generate(reqs)`` with the launch counts set to 0 just before
-    and read just after, and the calls ``want`` picks kept.  Returns
-    (outputs, wall seconds, launches by variant, the keeper)."""
+    and read just after, and the calls ``want`` picks kept; every launch
+    must be of ``variant``, one per engine step.  Returns (outputs, wall
+    seconds, launches by variant, the keeper)."""
     import torch
     from chattts_tpu_torch.engine import batching
     from chattts_tpu_torch.ops.decode_step import decode_step
@@ -884,10 +1203,10 @@ def _engine_run(eng, reqs, want):
         batching.step_mod.decode_step = decode_step
     wall = time.perf_counter() - t0
     counts = dict(decode_step.variant_launches)
-    check(counts["k2k3"] == eng.stats["steps_launched"] == keeper.n
-          and counts["k2k3"] == sum(counts.values()),
-          f"k2k3 launches {counts} against {eng.stats['steps_launched']} "
-          f"engine steps")
+    check(counts[variant] == eng.stats["steps_launched"] == keeper.n
+          and counts[variant] == sum(counts.values()),
+          f"{variant} launches {counts} against "
+          f"{eng.stats['steps_launched']} engine steps")
     return outs, wall, counts, keeper
 
 
@@ -907,12 +1226,21 @@ def _print_engine_run(title, eng, outs, wall):
           f"{lat['first_emission_p50_s']:.3f} s")
 
 
-def phase_engine(chat, kernels):
+def _fold(kernels, launches, counts, variant, err):
+    """Add a main-path run's launch counts to ``launches``, and fold its
+    kept calls' largest error into every row ``variant`` belongs to."""
+    launches.update(counts)
+    for row, entry in kernels.items():
+        if row == variant or (row in FEATURE_ROWS and row in variant):
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+
+def phase_engine(chat, kernels, launches):
     """The Engine at the capacity geometry on 24 requests, with preemption
     off (twins held to equality) and as the facade configures it; then the
-    facade's engine route on both caches.  Adds the launches of its runs to
-    ``kernels``, folds the kept calls' errors in, and times K2 on a call
-    its run made."""
+    facade's engine route on both caches and on int8 weights.  Adds the
+    launches of its runs to ``launches``, folds the kept calls' errors into
+    ``kernels``, and times K2 on a call its run made."""
     import dataclasses
 
     import numpy as np
@@ -934,10 +1262,7 @@ def phase_engine(chat, kernels):
                                packed=chat.packed)
 
     def fold(variant, counts, err):
-        kernels[variant]["launches"] = (kernels[variant].get("launches", 0)
-                                        + counts[variant])
-        kernels[variant]["max_abs_err"] = max(kernels[variant]["max_abs_err"],
-                                              err)
+        _fold(kernels, launches, counts, variant, err)
 
     # preemption by recompute is left off in the first run: a resumed
     # request is token-exact only up to the margins of its draws, and this
@@ -1012,19 +1337,23 @@ def phase_engine(chat, kernels):
           f"{prof_wall:.3f} s wall ({100 * device_s / prof_wall:.1f}%)")
     del eng
 
-    # the facade's engine route: int8 cache (K2+K3), then bf16 (K2).  Kept:
-    # the first call on each engine's cache (the text engine's, then the
-    # fast code tier's) and the code engine's 40th
+    # the facade's engine route: int8 cache (K2+K3), then bf16 (K2), then
+    # int8 weights on the int8 cache (K2+K3+K4).  Kept: the first call on
+    # each engine's cache (the text engine's, then the fast code tier's) and
+    # the code engine's 40th
     refine = Chat.RefineTextParams(max_new_token=32, min_new_token=4,
                                    manual_seed=11, show_tqdm=False)
     code = Chat.InferCodeParams(max_new_token=128, min_new_token=64,
                                 manual_seed=12, show_tqdm=False)
-    for kv_bits, variant in ((8, "k2k3"), (0, "k2")):
+    for weight_bits, kv_bits, variant in ((0, 8, "k2k3"), (0, 0, "k2"),
+                                          (8, 8, "k2k3k4")):
         echat = Chat(config=chat.config)
         echat.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
                           decoder=chat.decoder_params,
                           vocos=chat.vocos_params, use_engine=True,
-                          kv_bits=kv_bits)
+                          weight_bits=weight_bits, kv_bits=kv_bits)
+        title = (f"infer use_engine weight_bits={weight_bits} "
+                 f"kv_bits={kv_bits}")
         seen = {}
 
         def want_each(n, cur, kc):
@@ -1050,19 +1379,17 @@ def phase_engine(chat, kernels):
         engines = [echat._text_engine, *echat._code_engines.values()]
         steps = sum(e.stats["steps_launched"] for e in engines)
         check(counts[variant] == steps == sum(counts.values()) and steps > 0,
-              f"use_engine kv_bits={kv_bits}: launches {counts}, engine "
-              f"steps {steps}")
+              f"{title}: launches {counts}, engine steps {steps}")
         check(list(echat._code_engines) == ["fast"],
               f"tiers built: {list(echat._code_engines)}")
         code_T = echat._code_engines["fast"].state.kc.shape[2]
         check(sorted(seen) == [echat._text_engine.state.kc.shape[2], code_T]
               and code_T == 2304 and seen[code_T] >= 40,
-              f"use_engine kv_bits={kv_bits}: calls by cache length {seen}")
+              f"{title}: calls by cache length {seen}")
         fold(variant, counts, check_kept_calls(
-            echat.packed, norm, cfg, keeper.kept,
-            f"infer use_engine kv_bits={kv_bits}", 3))
+            echat.packed, norm, cfg, keeper.kept, title, 3))
         audio_s = sum(w.size for w in wavs) / chat.config.vocos.mel.sample_rate
-        print(f"infer use_engine kv_bits={kv_bits}: 4 texts, {steps} engine "
+        print(f"{title}: 4 texts, {steps} engine "
               f"steps, wall {wall:.3f} s (first use of its engines), audio "
               f"{audio_s:.2f} s, {variant} launches {counts[variant]}")
         if variant == "k2":
@@ -1074,6 +1401,72 @@ def phase_engine(chat, kernels):
                 "k2", cfg, echat.packed, emb, kc0, vc0, cur, lo, pos,
                 "the use_engine run's 40th code step", profile=True))
         del echat, keeper
+
+
+def phase_engine_64(chat, kernels, launches):
+    """An Engine of 64 slots on the int4 cache and int8 weights, at the
+    capacity geometry's cache (512 + 2048 rows), on 96 seeded requests:
+    every step K2+K6+K4.  Preemption is off, so the twins (requests 3 and
+    92, admitted in different waves) are held to equality.  Checks every
+    output, that more than 32 slots were live at the peak, and kept calls
+    (the first, and the first after the slots turned over) against the
+    plain version; times the variant on the last of them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from chattts_tpu_torch.engine import batching
+    from chattts_tpu_torch.ops.decode_step import pack_weights
+
+    cfg = chat.config.gpt
+    tier = chat._code_engine_geometry("capacity")
+    ecfg = dataclasses.replace(tier, max_num_seqs=64,
+                               preempt_after_chunks=None,
+                               max_stream_slots=None)
+    check(batching.fused_slot_limit(4) == 64
+          and batching.fused_slot_limit(8) == 32,
+          "64 slots are not tied to the int4 cache")
+    packed8 = pack_weights(chat.gpt_params, cfg, weight_bits=8)
+    eng = batching.Engine(cfg, ecfg, chat.gpt_params, chat.embed_params,
+                          spk_emb_ids=chat.tokenizer.spk_emb_ids,
+                          packed=packed8, kv_bits=4)
+    HD = cfg.num_attention_heads * cfg.head_dim
+    check(eng.state.kc.dtype == torch.int8
+          and tuple(eng.state.kc.shape[1:]) == (64, 2560, HD // 2 + 128),
+          f"the engine's cache is {tuple(eng.state.kc.shape)}")
+    print(f"engine 64 slots: kv4 caches {2 * eng.state.kc.numel() / 1e9:.2f} "
+          f"GB")
+    eng.warmup()
+    marks = {}
+
+    def want(n, cur, kc):
+        if n == 0:
+            return True
+        if "turned" not in marks and eng.stats["prefills"] > ecfg.max_num_seqs:
+            marks["turned"] = n
+            return True
+        return False
+
+    reqs = _engine_requests(cfg, 96)
+    outs, wall, counts, keeper = _engine_run(eng, reqs, want, "k2k6k4")
+    _check_engine_outputs(outs, reqs, cfg)
+    check(eng.stats["peak_slots"] == 64,
+          f"peak slots {eng.stats['peak_slots']}")
+    check(eng.stats["prefills"] == 96 and not eng.has_unfinished(),
+          f"prefills {eng.stats['prefills']}")
+    check(np.array_equal(outs[3].ids, outs[92].ids) and outs[3].ids.size > 0,
+          "the twin requests (same seed and prompt, different waves) differ")
+    check("turned" in marks, "no call was kept after the slots turned over")
+    _fold(kernels, launches, counts, "k2k6k4", check_kept_calls(
+        packed8, chat.gpt_params["norm"], cfg, keeper.kept,
+        "engine 64 slots", 2))
+    _print_engine_run("engine 64 slots kv4 w8", eng, outs, wall)
+    (emb, kc0, vc0, cur, lo, pos), _, _, _ = keeper.kept[-1]
+    del outs, eng
+    kernels["k2k6k4"].update(_time_call(
+        "k2k6k4", cfg, packed8, emb, kc0, vc0, cur, lo, pos,
+        "the 64-slot run's first step after the slots turned over",
+        profile=True))
 
 
 def main():
@@ -1096,36 +1489,50 @@ def main():
     phase_build()
     kernels = phase_kernel(dev)
     phase_attention(dev)
+    phase_weight_scales(dev)
     torch.cuda.empty_cache()
 
     from chattts_tpu_torch import Chat
 
+    launches = collections.Counter()
     chat = Chat()
     t0 = time.perf_counter()
     chat.load(source="random", seed=0)
     torch.cuda.synchronize()
     print(f"load: {time.perf_counter() - t0:.2f} s")
-    chat0 = Chat(config=chat.config)
-    chat0.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
+
+    def twin(**tiers):
+        c = Chat(config=chat.config)
+        c.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
                       decoder=chat.decoder_params, vocos=chat.vocos_params,
-                      kv_bits=0)
-    for variant, c, kv_bits, max_new in (("k1", chat0, 0, 128),
-                                         ("k3", chat, 8, 256)):
-        launches, err = phase_infer(c, kv_bits=kv_bits, max_new=max_new,
-                                    profile=bool(kv_bits))
-        kernels[variant]["launches"] = launches
-        kernels[variant]["max_abs_err"] = max(kernels[variant]["max_abs_err"],
-                                              err)
-    del chat0, c
-    phase_engine(chat, kernels)
+                      **tiers)
+        return c
+
+    # the Generator's main paths: K1, K3, then K4 on K3 and K5 on K6
+    for variant, tiers, max_new in (
+            ("k1", dict(kv_bits=0), 128), ("k3", None, 256),
+            ("k3k4", dict(weight_bits=8, kv_bits=8), 128),
+            ("k6k5", dict(weight_bits=4, kv_bits=4), 128)):
+        c = chat if tiers is None else twin(**tiers)
+        counts, err = phase_infer(c, variant, max_new=max_new,
+                                  profile=variant == "k3")
+        _fold(kernels, launches, counts, variant, err)
+        del c
+    phase_engine(chat, kernels, launches)
+    torch.cuda.empty_cache()
+    phase_engine_64(chat, kernels, launches)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for k in kernels.values():
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
-    print(json.dumps({"kernels": [{k: kernels[v][k] for k in keys}
-                                  for v in ("k1", "k2", "k3", "k2k3")]}))
+    for row, k in kernels.items():
+        # a row by feature counts every variant that holds the feature
+        k["launches"] = sum(n for v, n in launches.items()
+                            if (row in v if row in FEATURE_ROWS else row == v))
+        check(k["launches"] > 0, f"{k['name']} never launched on a main path")
+    print("launches by variant on the main paths:", dict(launches))
+    print(json.dumps({"kernels": [{k: entry[k] for k in keys}
+                                  for entry in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,6 +54,28 @@ def test_port_keeps_its_own_resources():
             / "decode_step.cu").exists()
 
 
+def test_cuda_sources_stand_alone():
+    """Every CUDA source has a plain C interface: it includes no PyTorch or
+    pybind header (those take minutes to compile) and no header of a package
+    of finished kernels, and holds every kernel the wrappers launch."""
+    import re
+
+    csrc = Path(chattts_tpu_torch.__file__).parent / "csrc"
+    sources = sorted(csrc.glob("*.cu"))
+    assert [p.name for p in sources] == ["decode_step.cu"]
+    for path in sources:
+        text = path.read_text()
+        includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', text)
+        assert set(includes) <= {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
+        assert 'extern "C"' in text
+    text = (csrc / "decode_step.cu").read_text()
+    for kernel in ("gemv_kernel", "rope_append_attend_kernel",
+                   "kv4_append_kernel", "decode_step_launch"):
+        assert kernel in text
+    for tier in ("W_INT8", "W_INT4", "KV_INT8", "KV_INT4"):
+        assert tier in text
+
+
 def test_port_pyproject_packages_complete():
     """The port's own pyproject.toml lists every subpackage and ships its
     resources and CUDA sources (a missing entry breaks the installed

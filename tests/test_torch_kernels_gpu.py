@@ -1,5 +1,5 @@
-"""The decode step's CUDA kernel (K1, K2, K3, K2+K3) against its plain
-PyTorch version, on the card.
+"""The decode step's CUDA kernel (K1-K6 and their combinations) against its
+plain PyTorch version, on the card.
 
 These tests need a CUDA device and the CUDA toolkit; without a device they
 skip.  They import neither JAX nor the JAX package, so on a machine that has
@@ -16,8 +16,12 @@ bit-unchanged.  An appended kv8 row is compared as bytes: layer 0's scale
 bytes equal; at most 1% of layer 0's value bytes and 10% of all layers' may
 differ (deeper layers quantize a residual that drifted within the hidden's
 tolerance), every dequantized value within one quantization step, two where
-the drift moved the head's scale.  A row's result must not depend on the
-batch it ran in, bit for bit.
+the drift moved the head's scale.  An appended kv4 row is held the same way
+on its unpacked values.  With quantized weights both sides multiply the
+same integers by the same scales; the kernel adds each lane's run of 8
+products times the scale where the plain version adds each group's sum
+times the scale, f32 both, so the hidden's tolerance stays 0.05.  A row's
+result must not depend on the batch it ran in, bit for bit, up to 64 rows.
 """
 
 import pytest
@@ -42,6 +46,22 @@ GEOMETRIES = {
                         num_attention_heads=3, num_hidden_layers=2,
                         max_position_embeddings=256),
 }
+# geometries that take quantized weights and kv4 rows (HD % 256 == 0)
+QUANT_GEOMETRIES = {
+    # tests/test_pallas_step.py's CFG4: two heads of 128, one to a nibble
+    "kv4": GPTConfig(hidden_size=256, intermediate_size=512,
+                     num_attention_heads=2, num_hidden_layers=2,
+                     max_position_embeddings=256),
+    # eight heads of 64: four head pairs share the bytes of a kv4 row, and
+    # the MLP's contraction has three int8 groups
+    "pairs": GPTConfig(hidden_size=512, intermediate_size=1536,
+                       num_attention_heads=8, num_hidden_layers=2,
+                       max_position_embeddings=256),
+}
+# (weight bits, cache bits, a position per row, the variant's name)
+TIERS = [(8, 0, False, "k1k4"), (8, 8, True, "k2k3k4"), (4, 0, True, "k2k5"),
+         (4, 8, False, "k3k5"), (0, 4, False, "k6"), (0, 4, True, "k2k6"),
+         (4, 4, False, "k6k5"), (8, 4, True, "k2k6k4")]
 
 
 @pytest.fixture()
@@ -192,6 +212,154 @@ def test_row_result_does_not_depend_on_the_batch(cuda, variant):
         assert torch.equal(k, k32[:, sl]) and torch.equal(v, v32[:, sl])
 
 
+def _tier_inputs(cfg, B, T, dev, wbits, kvbits, per_slot, seed=0):
+    """Inputs of one tier: packed weights of ``wbits``, caches of
+    ``kvbits``, positions as ``_variant_inputs`` makes them."""
+    params, _, kc, vc, emb, cur_arg, cur, lo = _variant_inputs(
+        cfg, B, T, dev, "k2" if per_slot else "k1", seed)
+    packed = k1.pack_weights(params, cfg, weight_bits=wbits)
+    if kvbits:
+        quant = {8: kv_quant.kv8_quantize, 4: kv_quant.kv4_quantize}[kvbits]
+        kc, vc = quant(kc, cfg), quant(vc, cfg)
+    return params, packed, kc, vc, emb, cur_arg, cur, lo
+
+
+def _check_quantized_rows(got, ref, base, cur, cfg):
+    """Row (b, cur_b) of every layer of a kv8 or kv4 cache against the plain
+    version's, on the unpacked values; all other rows against the input."""
+    H = cfg.num_attention_heads
+    QW = got.shape[-1] - kv_quant.KV_PAD
+    rows = torch.arange(got.shape[1], device=got.device)
+    keep = torch.ones(got.shape[:3], dtype=torch.bool, device=got.device)
+    keep[:, rows, cur] = False
+    assert torch.equal(got[keep], base[keep])
+    g, r = got[:, rows, cur], ref[:, rows, cur]      # (L, B, W)
+    assert torch.equal(g[0, :, QW:], r[0, :, QW:])
+    assert not g[..., QW + 2 * H:].any()
+    sg, sr = kv_quant.row_scales(g, cfg), kv_quant.row_scales(r, cfg)
+    assert bool(((sg - sr).abs() <= sr / 64 * (1 + 1e-6)).all())
+    step = torch.where(sg == sr, sr, 2 * torch.maximum(sg, sr))
+    vg, vr = k1.cache_values(g, cfg), k1.cache_values(r, cfg)
+    err = (vg.reshape(vg.shape[:-1] + (H, -1)) * sg[..., None]
+           - vr.reshape(vr.shape[:-1] + (H, -1)) * sr[..., None]).abs()
+    assert bool((err <= step[..., None] * (1 + 1e-6)).all())
+    differ = vg != vr
+    assert int(differ[0].sum()) <= 0.01 * differ[0].numel()
+    assert int(differ.sum()) <= 0.10 * differ.numel()
+
+
+def _tier_case(cfg, B, T, dev, wbits, kvbits, per_slot, name):
+    params, packed, kc, vc, emb, cur_arg, cur, lo = _tier_inputs(
+        cfg, B, T, dev, wbits, kvbits, per_slot)
+    pos = cur - lo
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = dict(k1.decode_step.variant_launches)
+    xk = k1.decode_step(packed, emb, kk, vk, cur_arg, lo, pos, cfg)
+    torch.cuda.synchronize()
+    after = k1.decode_step.variant_launches
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    xp = k1.decode_step_plain(packed, emb, kp, vp, cur_arg, lo, pos, cfg)
+    hk = llama.rms_norm(xk, params["norm"], cfg.rms_norm_eps)
+    hp = llama.rms_norm(xp, params["norm"], cfg.rms_norm_eps)
+    assert torch.isfinite(hk).all()
+    torch.testing.assert_close(hk, hp, atol=HIDDEN_ATOL, rtol=0)
+    for got, ref, base in ((kk, kp, kc), (vk, vp, vc)):
+        if kvbits:
+            _check_quantized_rows(got, ref, base, cur, cfg)
+        else:
+            _check_rows(got, ref, base, cur, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", sorted(QUANT_GEOMETRIES))
+@pytest.mark.parametrize("wbits,kvbits,per_slot,name", TIERS,
+                         ids=[t[3] for t in TIERS])
+@pytest.mark.parametrize("B", [1, 3, 16, 33, 64])
+def test_tier_matches_plain(cuda, geom, wbits, kvbits, per_slot, name, B):
+    _tier_case(QUANT_GEOMETRIES[geom], B, 64, cuda, wbits, kvbits, per_slot,
+               name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits,kvbits,per_slot,name",
+                         [t for t in TIERS
+                          if t[3] in ("k2k3k4", "k6k5", "k2k6k4")],
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_tier_matches_plain_at_full_width(cuda, wbits, kvbits, per_slot,
+                                          name):
+    """The full config's widths (D 768, 12 heads of 64, I 3072) at 4 layers:
+    int4 groups of 128, four int8 groups along the MLP's contraction, six
+    head pairs to a kv4 row."""
+    import dataclasses
+
+    from chattts_tpu_torch.config import Config
+
+    cfg = dataclasses.replace(Config().gpt, num_hidden_layers=4)
+    _tier_case(cfg, 8, 512, cuda, wbits, kvbits, per_slot, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits,kvbits,per_slot,name", TIERS,
+                         ids=[t[3] for t in TIERS])
+def test_tier_row_result_does_not_depend_on_the_batch(cuda, wbits, kvbits,
+                                                      per_slot, name):
+    """Rows of a 64-row launch (two row halves of the gemv) equal the same
+    rows launched alone, among 16 and among 32, bit for bit."""
+    cfg = QUANT_GEOMETRIES["pairs"]
+    _, packed, kc, vc, emb, cur_arg, cur, lo = _tier_inputs(
+        cfg, 64, 64, cuda, wbits, kvbits, per_slot)
+    pos = cur - lo
+
+    def run(sl):
+        k, v = kc[:, sl].contiguous(), vc[:, sl].contiguous()
+        c = cur_arg[sl] if isinstance(cur_arg, torch.Tensor) else cur_arg
+        x = k1.decode_step(packed, emb[sl], k, v, c, lo[sl], pos[sl], cfg)
+        torch.cuda.synchronize()
+        return x, k, v
+
+    x64, k64, v64 = run(slice(0, 64))
+    for sl in (slice(0, 1), slice(40, 41), slice(63, 64), slice(30, 46),
+               slice(0, 32), slice(32, 64), slice(20, 60)):
+        x, k, v = run(sl)
+        assert torch.equal(x, x64[sl])
+        assert torch.equal(k, k64[:, sl]) and torch.equal(v, v64[:, sl])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["k1", "k2k3"])
+def test_rows_33_to_64_of_the_earlier_variants(cuda, variant):
+    """K1-K3 keep their instantiations and gain the second row half."""
+    cfg = GEOMETRIES["ragged"]
+    params, packed, kc, vc, emb, cur_arg, cur, lo = _variant_inputs(
+        cfg, 50, 64, cuda, variant)
+    pos = cur - lo
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    xk = k1.decode_step(packed, emb, kk, vk, cur_arg, lo, pos, cfg)
+    torch.cuda.synchronize()
+    xp = k1.decode_step_plain(packed, emb, kp, vp, cur_arg, lo, pos, cfg)
+    torch.testing.assert_close(
+        llama.rms_norm(xk, params["norm"], cfg.rms_norm_eps),
+        llama.rms_norm(xp, params["norm"], cfg.rms_norm_eps),
+        atol=HIDDEN_ATOL, rtol=0)
+    _check_rows(kk, kp, kc, cur, cfg)
+    _check_rows(vk, vp, vc, cur, cfg)
+
+
+@pytest.mark.gpu
+def test_kv4_rows_are_not_written_for_a_poisoned_row(cuda):
+    cfg = QUANT_GEOMETRIES["pairs"]
+    _, packed, kc, vc, emb, _, cur, lo = _tier_inputs(cfg, 3, 64, cuda, 4, 4,
+                                                      True)
+    cur = cur.clone()
+    cur[2] = 64
+    kk, vk = kc.clone(), vc.clone()
+    x = k1.decode_step(packed, emb, kk, vk, cur, lo, cur - lo, cfg)
+    torch.cuda.synchronize()
+    assert torch.isnan(x[2]).all() and torch.isfinite(x[:2]).all()
+    assert torch.equal(kk[:, 2], kc[:, 2]) and torch.equal(vk[:, 2], vc[:, 2])
+
+
 @pytest.mark.gpu
 def test_out_of_range_device_position_poisons_its_row_only(cuda):
     """A position the host cannot see is not clamped: the row turns NaN, the
@@ -233,8 +401,13 @@ def test_variant_wrapper_errors(cuda):
             3, dtype=torch.long, device=cuda), lo, lo, cfg)
     _, packed33, kc33, vc33, emb33 = _inputs(cfg, 33, 16, cuda)
     lo33 = torch.zeros(33, dtype=torch.long, device=cuda)
-    with pytest.raises(ValueError, match="1 to 32 rows"):
-        k1.decode_step(packed33, emb33, kc33, vc33, 3, lo33, lo33, cfg)
+    x33 = k1.decode_step(packed33, emb33, kc33, vc33, 3, lo33, lo33, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x33).all()
+    _, packed65, kc65, vc65, emb65 = _inputs(cfg, 65, 16, cuda)
+    lo65 = torch.zeros(65, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        k1.decode_step(packed65, emb65, kc65, vc65, 3, lo65, lo65, cfg)
 
 
 @pytest.mark.gpu

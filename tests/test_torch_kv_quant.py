@@ -136,3 +136,115 @@ def test_too_many_heads_rejected():
     wide = dataclasses.replace(PCFG, num_attention_heads=128, hidden_size=8192)
     with pytest.raises(ValueError, match="too many heads"):
         kv_quant.kv8_quantize(torch.zeros((1, 8192)), wide)
+
+
+# ---- the int4 rows ---------------------------------------------------------
+# kv4 needs HD % 256 == 0, so these run tests/test_pallas_step.py's CFG4.
+# Scales are absmax / 7: the exponents the formula touches are exact in both
+# packages for per-head absmax in [0.125, 2e4) (e in [-6, 11]).
+
+CFG4 = GPTConfig(hidden_size=256, intermediate_size=512,
+                 num_attention_heads=2, num_hidden_layers=1,
+                 max_position_embeddings=64)
+PCFG4 = port_config(CFG4)
+H4, Dh4 = CFG4.num_attention_heads, CFG4.head_dim
+HD4 = H4 * Dh4
+
+
+def _both4(x: np.ndarray):
+    ref = np.array(pallas_step.kv4_quantize(jnp.asarray(x), CFG4))
+    got = kv_quant.kv4_quantize(torch.from_numpy(x), PCFG4).numpy()
+    return got, ref
+
+
+def test_kv4_quantize_random_rows_byte_identical():
+    rng = np.random.default_rng(10)
+    x = (rng.standard_normal((3, 5, 40, HD4)) * 2.0).astype(np.float32)
+    x *= rng.uniform(1.0, 800.0, size=(3, 5, 40, 1)).astype(np.float32)
+    amax = np.abs(x.reshape(-1, H4, Dh4)).max(-1)
+    assert amax.min() >= 0.125 and amax.max() < 2e4  # the exact-exp2 range
+    got, ref = _both4(x)
+    assert got.dtype == np.int8 and got.shape == ref.shape
+    assert got.shape[-1] == HD4 // 2 + kv_quant.KV_PAD
+    np.testing.assert_array_equal(got, ref)
+    assert not got[..., HD4 // 2 + 2 * H4:].any()
+
+
+def test_kv4_nibble_order():
+    """Feature f < HD/2 rides the low nibble of byte f, feature HD/2 + f the
+    high nibble: head 0 is all low nibbles here, head 1 all high ones."""
+    x = np.zeros((1, HD4), np.float32)
+    x[0, :Dh4] = 7.0     # head 0: every value quantizes to 7
+    x[0, Dh4:] = -3.5    # head 1: every value to -7
+    got, ref = _both4(x)
+    np.testing.assert_array_equal(got, ref)
+    b = got[0, :HD4 // 2].astype(np.int32)
+    assert ((b & 15) == 7).all() and ((b >> 4) == -7).all()
+    vals = kv_quant.unpack_nibbles(torch.from_numpy(got[:, :HD4 // 2]))
+    assert (vals[0, :Dh4] == 7).all() and (vals[0, Dh4:] == -7).all()
+
+
+def test_kv4_zero_rows_and_heads():
+    x = np.zeros((3, HD4), np.float32)
+    x[1, :Dh4] = np.linspace(-9.0, 9.0, Dh4)
+    x[2, Dh4:] = 5.0
+    got, ref = _both4(x)
+    np.testing.assert_array_equal(got, ref)
+    back = kv_quant.kv4_dequantize(torch.from_numpy(got), PCFG4).numpy()
+    assert not back[0].any() and not back[1, Dh4:].any()
+    assert not back[2, :Dh4].any() and back[2, Dh4:].min() > 4.9
+
+
+@pytest.mark.parametrize("k", list(range(-5, 10)))
+@pytest.mark.parametrize("ulps", [-1, 0, 1])
+def test_kv4_power_of_two_boundary(k, ulps):
+    """absmax / 7 an exact power of two, one ulp below and one above."""
+    sc = np.float32(2.0) ** np.float32(k)
+    a = np.float32(7.0) * sc
+    if ulps:
+        a = np.nextafter(a, np.float32(np.inf if ulps > 0 else -np.inf),
+                         dtype=np.float32)
+    rng = np.random.default_rng(200 + k)
+    x = (rng.uniform(-1, 1, size=(4, HD4)) * a).astype(np.float32)
+    x[:, 0] = a
+    x[:, Dh4] = -a
+    got, ref = _both4(x)
+    np.testing.assert_array_equal(got, ref)
+    m = got[:, HD4 // 2:HD4 // 2 + H4]
+    es = got[:, HD4 // 2 + H4:HD4 // 2 + 2 * H4]
+    if np.float32(a) / np.float32(7.0) == sc:
+        assert (m == 64).all() and (es == k - 6).all()
+
+
+def test_kv4_dequantize_identical_and_within_half_a_step():
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((4, 9, HD4)) * 7.0).astype(np.float32)
+    rows = np.array(pallas_step.kv4_quantize(jnp.asarray(x), CFG4))
+    ref = np.asarray(pallas_step.kv4_dequantize(jnp.asarray(rows), CFG4))
+    got = kv_quant.kv4_dequantize(torch.from_numpy(rows), PCFG4).numpy()
+    np.testing.assert_array_equal(got, ref)
+    step = kv_quant.row_scales(torch.from_numpy(rows), PCFG4).numpy()
+    err = np.abs(got - x).reshape(4, 9, H4, Dh4)
+    assert (err <= 0.5 * step[..., None] * (1 + 1e-6)).all()
+
+
+def test_kv4_unit_scale_rows_differ_only_at_rounding_ties():
+    """O(1) rows: es is about -9, inside the exact range of this backend's
+    exp2 too; held to the kv8 test's limits all the same (scale bytes
+    equal, value nibbles off by at most one step in 1 of 10^4)."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((64, 64, HD4)).astype(np.float32)
+    got, ref = _both4(x)
+    np.testing.assert_array_equal(got[..., HD4 // 2:], ref[..., HD4 // 2:])
+    vg = kv_quant.unpack_nibbles(torch.from_numpy(got[..., :HD4 // 2])).numpy()
+    vr = kv_quant.unpack_nibbles(torch.from_numpy(ref[..., :HD4 // 2])).numpy()
+    n = int((vg != vr).sum())
+    print(f"unit-scale kv4 rows: {n} of {vg.size} values differ")
+    assert np.abs(vg - vr).max() <= 1
+    assert n <= vg.size // 10_000
+
+
+def test_kv4_rejects_unpackable_geometry():
+    assert kv_quant.kv4_packable(PCFG4) and not kv_quant.kv4_packable(PCFG)
+    with pytest.raises(ValueError, match="kv-int4-packable"):
+        kv_quant.kv4_quantize(torch.zeros((1, HD)), PCFG)
