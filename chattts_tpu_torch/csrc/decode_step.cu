@@ -31,8 +31,8 @@
 // feature f < HD/2 in the low nibble of byte f, feature HD/2 + f in its high
 // nibble, scales from absmax / 7.  Two heads share every byte there, so the
 // append is a launch of its own, one block per row, before the attention
-// kernel (which for this tier only ropes q and attends): no two blocks
-// write one byte, and nothing rests on an order between blocks.
+// pair (which for this tier only ropes q and attends): no two blocks write
+// one byte, and nothing rests on an order between blocks.
 //
 // Quantized weights are (N, K) int8, or (N, K/2) bytes with weight 2j in
 // the low nibble of byte j and 2j + 1 in the high one, beside f32 scales
@@ -50,20 +50,56 @@
 // Bound on an H100: the step streams every weight once,
 // L*(4*D*D + 3*D*I) of them at 2, 1 or 1/2 bytes (377, 189 or 94 MB at
 // D 768, I 3072, L 20: ~113, ~57 or ~28 us at 3.35 TB/s) and their scales,
-// plus 2*L*sum_b(cur_b-lo_b+1)*W bytes of KV reads and 2*L*B*W of appended
-// rows, W = 2*HD (bf16), HD+128 (int8) or HD/2+128 (int4).  Its arithmetic
+// plus 2*L*sum_b(cur_b-lo_b)*R bytes of KV reads and 2*L*B*W of appended
+// rows, W = 2*HD (bf16), HD+128 (int8) or HD/2+128 (int4) the row's width,
+// R the bytes of a row that attention reads: W on bf16, the QW = HD or HD/2
+// value bytes and one 32-byte sector of head scales on int8 and int4 (the
+// row's pad past the scales is written, never read).  Its arithmetic
 // intensity is ~B flop/byte, far below the ~295 the tensor cores need, so
 // it is bound by bytes.  The design therefore reads each weight byte once
 // per step: `gemv` gives every block a tile of output columns for ALL B
 // rows (for each half of up to 32), with weights stored (N, K) so a warp
 // streams one contiguous row with 16-, 8- or 4-byte loads of 8 weights
 // (bf16, int8, int4) while the bf16 input rows sit in shared memory.  The
-// TPU kernel's sequential layer grid becomes a host loop over layers (five
-// launches a layer, six on the int4 cache); its slab DMA ring, chunking and
-// aligned append windows are TPU mechanics with no counterpart here.
-// Launch overhead, not bytes, is expected to dominate this first version;
-// CUDA graphs, split-T attention, wider loads for the quantized tiers and a
-// TMA/wgmma weight stream are later work.
+// TPU kernel's sequential layer grid becomes a host loop over layers (six
+// launches a layer, seven on the int4 cache); its slab DMA ring and aligned
+// append windows are TPU mechanics with no counterpart here.
+//
+// Attention is bound by bytes too: a row reads 2 * n * R bytes of keys and
+// values for n visible keys (6.3 MB a layer at 8 rows, 256 keys, bf16: 1.9
+// us at 3.35 TB/s) and does 4 * n * HD flops.  The bytes are few, so what
+// costs is latency: a block per (head, row) walking its keys one warp a key
+// leaves the card idle.  The design spreads the keys over many blocks and
+// keeps many 16-byte loads in flight (flash decoding):
+//   attend_scores  grid (X, H, B): block (x, h, b) scores chunks x, x + X,
+//                  ... of row b's window [lo_b, cur_b] for head h,
+//                  kAttnChunk keys each, with G lanes a key each loading 16
+//                  bytes of the head's row (bf16: 8 features; kv8 and kv4:
+//                  16, kv4 taking its head's nibble of each byte) and two
+//                  or four keys loaded before any is summed; it writes the
+//                  scores and the chunk's max to scratch.  The block whose
+//                  chunk holds cur_b ropes k and appends the row first.
+//   attend_values  the same grid: each block takes the window's max from
+//                  the chunk maxima, so every p = exp(s - m) is the one the
+//                  plain version rounds (a per-chunk max rescaled later
+//                  would round p otherwise), sums each of its chunks'
+//                  bf16(p * v scale) * v and p into a partial, and the
+//                  chunk that finishes last in its (row, head) (an atomic
+//                  ticket after a __threadfence) adds the partials in chunk
+//                  order, writes o = acc / l and resets the ticket to 0.
+// The host knows T, never cur: a row has at most S = ceil(T / kAttnChunk)
+// chunks, and X = min(S, ceil(kAttnBlocks / (B H))), so a short batch gets
+// a block a chunk, and 64 rows on a long cache do not pay for thousands of
+// blocks past every window (such blocks exit at once).  The chunk is fixed
+// at compile time and the partials are added in chunk order whichever
+// block made them, so a row's chunks, sums and result depend on its own
+// window only.  Two launches a layer where there was one: twenty more a
+// step.  The kernels allocate nothing: the scores (B, H, T), chunk maxima
+// (B, H, S), partials (B, H, S, Dh + 1) and tickets (B * H, zero between
+// launches, one buffer to a stream) come from the wrapper, which sizes them
+// from decode_step_attn_chunk().
+// Launch overhead dominates the step; a CUDA graph and a tensor-core gemv
+// are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libdecode_step.so decode_step.cu
@@ -81,6 +117,23 @@ constexpr int kKvPad = 128;      // pad lanes of a quantized cache row
 constexpr int kGemvWarps = 4;    // warps per gemv block
 constexpr int kColsPerWarp = 2;  // output columns per warp
 constexpr int kAttnThreads = 128;
+constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kMaxDh = 128;      // head width the attention pair takes
+#ifndef ATTN_CHUNK
+#define ATTN_CHUNK 64
+#endif
+// keys of a row's window one attention block owns (the wrapper reads it
+// from decode_step_attn_chunk); the build may set it, and ATTN_BLOCKS
+// below, with -D to compare sizes (chip_smoke.py --sweep-chunk)
+constexpr int kAttnChunk = ATTN_CHUNK;
+static_assert(kAttnChunk == 32 || kAttnChunk == 64 || kAttnChunk == 128,
+              "the attention chunk is 32, 64 or 128 keys");
+#ifndef ATTN_BLOCKS
+#define ATTN_BLOCKS 2112
+#endif
+// attention blocks a launch aims at: by default 16 of 4 warps on each of an
+// H100's 132 SMs, all the threads an SM holds at once
+constexpr int kAttnBlocks = ATTN_BLOCKS;
 // dynamic shared memory a launch may take without opting in: the 48 KB
 // default, less room for the kernels' small static arrays
 constexpr size_t kDefaultSmem = 46 * 1024;
@@ -280,18 +333,6 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
   }
 }
 
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red may still be read by a previous reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < nw; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
 // The stored scale of one head of an appended row from its absmax `a`, for
 // values quantized to [-maxq, maxq]: mantissa and exponent bytes, and the
 // divisor m * 2^e (at least 1e-30).  ops/kv_quant.py::head_scales, step for
@@ -407,141 +448,314 @@ kv4_append_kernel(const float* __restrict__ qkv, const float* __restrict__ cosb,
   }
 }
 
-// Value d of head h of a quantized cache row, as stored (scale not applied).
+// How the attention pair reads a head's part of a cache row: G = Dh / F
+// lanes a key, lane j loading the 16 bytes that hold features
+// [j F, (j + 1) F) of the head.  bf16: F = 8 values.  kv8: F = 16 bytes.
+// kv4: F = 16 nibbles, the low or high halves of 16 bytes (feature f < QW
+// lives in byte f, feature f >= QW in byte f - QW), which is the head's
+// whole share of those bytes.  Dh % 16 == 0, so a lane's features never
+// straddle QW and every load is 16-byte aligned.
 template <int KV>
-__device__ __forceinline__ float cache_value(const int8_t* row, int f, int QW) {
-  if (KV == KV_INT8) return (float)row[f];
-  const int byte = f < QW ? row[f] : row[f - QW];  // sign-extended
-  return (float)(f < QW ? (int32_t)((uint32_t)byte << 28) >> 28 : byte >> 4);
+struct HeadLanes {
+  static constexpr int F = KV == KV_BF16 ? 8 : 16;
+  // keys a lane loads before it sums any (loads in flight per lane)
+  static constexpr int U = KV == KV_BF16 ? 4 : 2;
+};
+
+// The 16 bytes of cache row `row` holding row feature f0 (a multiple of F).
+template <int KV>
+__device__ __forceinline__ uint4 load_lane(const char* row, int f0, int QW) {
+  const int byte = KV == KV_BF16 ? 2 * f0
+                   : KV == KV_INT8 ? f0 : (f0 < QW ? f0 : f0 - QW);
+  return *reinterpret_cast<const uint4*>(row + byte);
 }
 
-// One block per (head h, row b): rope q and k, append k and v at row cur[b]
-// of this layer's cache (kv4: appended already by kv4_append_kernel), then
-// attend q over rows [lo[b], cur[b]] of the cache and write
-// o[b, h*Dh:(h+1)*Dh].  Rows outside the window are never read, and only
-// row cur[b] is written.  KV selects the row format.
-// A position outside [0, T), or a window with no key, is not clamped: the
-// row's output is NaN, so the fault shows in the step's result.
-// Dh divides blockDim (128); shared memory holds Dh bf16-rounded query
-// values, the f32 k and v of the head (kv8), T scores and the partial sums.
+// A lane's F stored values, widened to f32 (exact), scale not applied.
+// `high`: the kv4 features sit in the high nibbles.
 template <int KV>
-__global__ void __launch_bounds__(kAttnThreads)
-rope_append_attend_kernel(const float* __restrict__ qkv,
-                          const float* __restrict__ cosb,
-                          const float* __restrict__ sinb,
-                          void* __restrict__ kc_raw, void* __restrict__ vc_raw,
-                          const int* __restrict__ cur,
-                          const int* __restrict__ lo, float* __restrict__ o,
-                          int T, int H, int Dh, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ float red[kAttnThreads / 32];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int HD = H * Dh, half = Dh / 2;
-  // quantized values' bytes before the scale lanes, and the row's width
-  const int QW = KV == KV_INT4 ? HD / 2 : HD;
-  const int W = KV == KV_BF16 ? HD : QW + kKvPad;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  float* qs = sm;                     // [Dh]
-  float* kf = qs + Dh;                // [Dh] roped k, f32 (kv8)
-  float* vf = kf + Dh;                // [Dh] v, f32 (kv8)
-  float* part = vf + Dh;              // [nthreads]
-  float* sc = part + nthreads;        // [T]
-  __nv_bfloat16* kcb = static_cast<__nv_bfloat16*>(kc_raw);
-  __nv_bfloat16* vcb = static_cast<__nv_bfloat16*>(vc_raw);
-  int8_t* kc8 = static_cast<int8_t*>(kc_raw);
-  int8_t* vc8 = static_cast<int8_t*>(vc_raw);
-
-  const int c = cur[b];
-  const int lob = max(lo[b], 0);
-  const int n = c - lob + 1;
-  if (!row_is_live(c, lob, T)) {  // uniform over the block
-    for (int d = tid; d < Dh; d += nthreads)
-      o[(size_t)b * HD + (size_t)h * Dh + d] = __int_as_float(0x7fc00000);
+__device__ __forceinline__ void widen_lane(const uint4& u, bool high, float* f) {
+  if (KV == KV_BF16) {
+    unpack8(u, f);
     return;
   }
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // byte k of the word to the top, then an arithmetic shift down:
+      // int8 values, or the sign-extended low or high nibble
+      const int up = KV == KV_INT8 ? 24 - 8 * k : (high ? 24 : 28) - 8 * k;
+      f[4 * i + k] =
+          (float)((int32_t)(w[i] << up) >> (KV == KV_INT8 ? 24 : 28));
+    }
+}
+
+// The scale m * 2^e of head h of a quantized cache row.
+__device__ __forceinline__ float head_scale_of(int8_t m, int8_t e) {
+  return ldexpf((float)m, (int)e);
+}
+
+// Pass 1 of attention, block (x, h, b) of a grid (X, H, B): rope q (and, in
+// the block whose chunks hold cur_b, k, appending row cur_b's head h: bf16
+// and kv8; kv4's row is appended by kv4_append_kernel before this launch),
+// then for chunks s = x, x + X, ... of the window [lo_b, cur_b] score the
+// keys [lo_b + s C, lo_b + (s + 1) C), C = kAttnChunk, as
+// (bf16(q * scale) . k) * k_scale, into scores[b, h, t - lo_b], and their
+// max into cmax[b, h, s].  A block past the window, or of a row that is not
+// live, does nothing (attend_values poisons the row).  No other block
+// reads row cur_b, so the append needs only this block's barrier.
+template <int KV>
+__global__ void __launch_bounds__(kAttnThreads)
+attend_scores_kernel(const float* __restrict__ qkv,
+                     const float* __restrict__ cosb,
+                     const float* __restrict__ sinb, char* kc, char* vc,
+                     const int* __restrict__ cur, const int* __restrict__ lo,
+                     float* __restrict__ scores, float* __restrict__ cmax,
+                     int T, int H, int Dh, float scale) {
+  constexpr int F = HeadLanes<KV>::F, U = HeadLanes<KV>::U;
+  __shared__ __align__(16) float qs[kMaxDh];
+  __shared__ float kf[kMaxDh], vf[kMaxDh];  // roped k and v, f32 (kv8)
+  __shared__ float red[kAttnWarps];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c = cur[b], lob = max(lo[b], 0);
+  if (!row_is_live(c, lob, T)) return;  // uniform over the block
+  const int n = c - lob + 1;
+  const int chunks = (n + kAttnChunk - 1) / kAttnChunk;
+  if ((int)blockIdx.x >= chunks) return;
+  const int S = (T + kAttnChunk - 1) / kAttnChunk;  // cmax's row length
+  const int HD = H * Dh, half = Dh / 2;
+  const int QW = KV == KV_INT4 ? HD / 2 : HD;
+  const size_t W = KV == KV_BF16 ? (size_t)HD * 2 : (size_t)QW + kKvPad;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool owns_cur = (chunks - 1) % gridDim.x == blockIdx.x;
 
   const float* q = qkv + (size_t)b * 3 * HD + h * Dh;
   const float* k = q + HD;
   const float* v = q + 2 * HD;
-  const size_t row_cur = ((size_t)b * T + c) * W;
-  for (int d = tid; d < Dh; d += nthreads) {
+  char* krow_cur = kc + ((size_t)b * T + c) * W;
+  char* vrow_cur = vc + ((size_t)b * T + c) * W;
+  for (int d = tid; d < Dh; d += kAttnThreads) {
     const float cs = cosb[b * Dh + d], sn = sinb[b * Dh + d];
     const float rq = d < half ? -bf16_round(q[d + half]) : bf16_round(q[d - half]);
-    const float qr = q[d] * cs + rq * sn;
-    if (KV != KV_INT4) {
+    qs[d] = bf16_round((q[d] * cs + rq * sn) * scale);
+    if (KV != KV_INT4 && owns_cur) {
       const float rk = d < half ? -bf16_round(k[d + half]) : bf16_round(k[d - half]);
       const float kr = k[d] * cs + rk * sn;
       if (KV == KV_INT8) {
         kf[d] = kr;
         vf[d] = v[d];
       } else {
-        kcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(kr);
-        vcb[row_cur + (size_t)h * Dh + d] = __float2bfloat16_rn(v[d]);
+        reinterpret_cast<__nv_bfloat16*>(krow_cur)[h * Dh + d] = __float2bfloat16_rn(kr);
+        reinterpret_cast<__nv_bfloat16*>(vrow_cur)[h * Dh + d] = __float2bfloat16_rn(v[d]);
       }
     }
-    qs[d] = bf16_round(qr * scale);
   }
-  __syncthreads();  // qs (and kf, vf, or the appended row) visible block-wide
-  if (KV == KV_INT8) {
-    kv8_append_head(kf, kc8 + row_cur, h, H, Dh);
-    kv8_append_head(vf, vc8 + row_cur, h, H, Dh);
+  __syncthreads();  // qs, kf and vf, or the appended bf16 row, block-wide
+  if (KV == KV_INT8 && owns_cur) {
+    int8_t* kr8 = reinterpret_cast<int8_t*>(krow_cur);
+    int8_t* vr8 = reinterpret_cast<int8_t*>(vrow_cur);
+    kv8_append_head(kf, kr8, h, H, Dh);
+    kv8_append_head(vf, vr8, h, H, Dh);
     if (h == 0) {  // the lanes after the scales are written zero
-      for (int i = HD + 2 * H + tid; i < W; i += nthreads) {
-        kc8[row_cur + i] = 0;
-        vc8[row_cur + i] = 0;
+      for (int i = HD + 2 * H + tid; i < (int)W; i += kAttnThreads) {
+        kr8[i] = 0;
+        vr8[i] = 0;
       }
     }
     __syncthreads();  // the appended row is visible block-wide
   }
 
-  for (int i = warp; i < n; i += nwarps) {
-    const size_t row = ((size_t)b * T + lob + i) * W;
-    float a = 0.f;
-    if (KV != KV_BF16) {
-      const int8_t* kr = kc8 + row;
-      for (int d = lane; d < Dh; d += 32)
-        a = fmaf(cache_value<KV>(kr, h * Dh + d, QW), qs[d], a);
-      a = warp_sum(a);
-      if (lane == 0) sc[i] = a * ldexpf((float)kr[QW + h], (int)kr[QW + H + h]);
-    } else {
-      const __nv_bfloat16* kr = kcb + row + (size_t)h * Dh;
-      for (int d = lane; d < Dh; d += 32) a = fmaf(__bfloat162float(kr[d]), qs[d], a);
-      a = warp_sum(a);
-      if (lane == 0) sc[i] = a;
+  const int G = Dh / F, j = tid % G, g = tid / G, groups = kAttnThreads / G;
+  const int f0 = h * Dh + j * F;
+  const bool high = KV == KV_INT4 && f0 >= QW;
+  float qreg[F];
+#pragma unroll
+  for (int e = 0; e < F; ++e) qreg[e] = qs[j * F + e];
+  for (int s = blockIdx.x; s < chunks; s += gridDim.x) {
+    const int i0 = s * kAttnChunk;
+    const int cnt = min(kAttnChunk, n - i0);
+    const char* base = kc + ((size_t)b * T + lob + i0) * W;
+    float* out = scores + ((size_t)b * H + h) * T + i0;
+    float mx = -INFINITY;
+    // every lane runs every round (the group sums shuffle), keys past the
+    // chunk are masked
+    for (int r0 = 0; r0 < cnt; r0 += U * groups) {
+      uint4 raw[U];
+      int8_t sm[U], se[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = r0 + g + u * groups;
+        raw[u] = make_uint4(0, 0, 0, 0);
+        sm[u] = se[u] = 0;
+        if (i < cnt) {
+          const char* row = base + (size_t)i * W;
+          raw[u] = load_lane<KV>(row, f0, QW);
+          if (KV != KV_BF16 && j == 0) {
+            sm[u] = reinterpret_cast<const int8_t*>(row)[QW + h];
+            se[u] = reinterpret_cast<const int8_t*>(row)[QW + H + h];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float f[F];
+        widen_lane<KV>(raw[u], high, f);
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < F; ++e) a = fmaf(f[e], qreg[e], a);
+        for (int o = G / 2; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        const int i = r0 + g + u * groups;
+        if (i < cnt && j == 0) {  // the key's scale after the sum
+          const float sc = KV == KV_BF16 ? a : a * head_scale_of(sm[u], se[u]);
+          out[i] = sc;
+          mx = fmaxf(mx, sc);
+        }
+      }
     }
-  }
-  __syncthreads();
-  float m = -1e30f;
-  for (int i = tid; i < n; i += nthreads) m = fmaxf(m, sc[i]);
-  m = block_reduce(m, red, true);
-  float l = 0.f;
-  for (int i = tid; i < n; i += nthreads) {
-    const float p = expf(sc[i] - m);
-    l += p;
-    if (KV != KV_BF16) {  // the value row's scale goes into p before its rounding
-      const int8_t* vr = vc8 + ((size_t)b * T + lob + i) * W;
-      sc[i] = bf16_round(p * ldexpf((float)vr[QW + h], (int)vr[QW + H + h]));
-    } else {
-      sc[i] = bf16_round(p);
+    mx = warp_max(mx);
+    if (lane == 0) red[warp] = mx;
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < kAttnWarps; ++w) mx = fmaxf(mx, red[w]);
+      cmax[((size_t)b * H + h) * S + s] = mx;
     }
+    __syncthreads();  // red is free for the next chunk
   }
-  l = block_reduce(l, red, false);  // its barriers also publish sc
+}
 
-  const int d = tid % Dh, slice = tid / Dh, nslices = nthreads / Dh;
-  float a = 0.f;
-  for (int i = slice; i < n; i += nslices) {
-    const size_t row = ((size_t)b * T + lob + i) * W;
-    const float vv = KV == KV_BF16
-                         ? __bfloat162float(vcb[row + (size_t)h * Dh + d])
-                         : cache_value<KV>(vc8 + row, h * Dh + d, QW);
-    a = fmaf(sc[i], vv, a);
+// Pass 2 of attention, the grid of pass 1: block (x, h, b) takes the
+// window's max m (the max of its chunk maxima, exact), and for each of its
+// chunks s sums l = sum p and acc = sum bf16(p * v_scale) v over the
+// chunk's keys with p = exp(s - m) (the value row's scale goes into p
+// before its rounding; bf16: no scale).  A window of one chunk writes
+// o = acc / l at once.  Otherwise the block writes (acc, l) to
+// part[b, h, s] and takes a ticket; the chunk that takes the last ticket
+// adds the partials in chunk order, writes o and resets the ticket.  A row
+// that is not live gets NaN in o (block 0), so the fault shows in the
+// step's result.
+template <int KV>
+__global__ void __launch_bounds__(kAttnThreads)
+attend_values_kernel(const char* vc, const int* __restrict__ cur,
+                     const int* __restrict__ lo,
+                     const float* __restrict__ scores,
+                     const float* __restrict__ cmax, float* part,
+                     unsigned int* tickets, float* __restrict__ o, int T,
+                     int H, int Dh) {
+  constexpr int F = HeadLanes<KV>::F, U = HeadLanes<KV>::U;
+  __shared__ float accs[kAttnWarps][kMaxDh];
+  __shared__ float ls[kAttnWarps];
+  __shared__ bool last;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int HD = H * Dh, S = (T + kAttnChunk - 1) / kAttnChunk;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* orow = o + (size_t)b * HD + (size_t)h * Dh;
+  const int c = cur[b], lob = max(lo[b], 0);
+  if (!row_is_live(c, lob, T)) {  // uniform over the block
+    if (blockIdx.x == 0)
+      for (int d = tid; d < Dh; d += kAttnThreads)
+        orow[d] = __int_as_float(0x7fc00000);
+    return;
   }
-  part[tid] = a;
-  __syncthreads();
-  if (slice == 0) {
-    for (int s2 = 1; s2 < nslices; ++s2) a += part[s2 * Dh + d];
-    o[(size_t)b * HD + (size_t)h * Dh + d] = a / l;
+  const int n = c - lob + 1;
+  const int chunks = (n + kAttnChunk - 1) / kAttnChunk;
+  if ((int)blockIdx.x >= chunks) return;
+  const int QW = KV == KV_INT4 ? HD / 2 : HD;
+  const size_t W = KV == KV_BF16 ? (size_t)HD * 2 : (size_t)QW + kKvPad;
+  const size_t bh = (size_t)b * H + h;
+
+  // the window's max, which every warp takes for itself
+  float m = -INFINITY;
+  for (int t = lane; t < chunks; t += 32) m = fmaxf(m, cmax[bh * S + t]);
+  m = warp_max(m);
+
+  const int G = Dh / F, j = tid % G, g = tid / G, groups = kAttnThreads / G;
+  const int f0 = h * Dh + j * F;
+  const bool high = KV == KV_INT4 && f0 >= QW;
+  for (int s = blockIdx.x; s < chunks; s += gridDim.x) {
+    const int i0 = s * kAttnChunk;
+    const int cnt = min(kAttnChunk, n - i0);
+    const char* base = vc + ((size_t)b * T + lob + i0) * W;
+    const float* sc = scores + bh * T + i0;
+    float acc[F];
+#pragma unroll
+    for (int e = 0; e < F; ++e) acc[e] = 0.f;
+    float l = 0.f;
+    for (int r0 = 0; r0 < cnt; r0 += U * groups) {
+      uint4 raw[U];
+      float sraw[U];
+      int8_t sm[U], se[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = r0 + g + u * groups;
+        raw[u] = make_uint4(0, 0, 0, 0);
+        sraw[u] = -INFINITY;
+        sm[u] = se[u] = 0;
+        if (i < cnt) {
+          const char* row = base + (size_t)i * W;
+          raw[u] = load_lane<KV>(row, f0, QW);
+          sraw[u] = sc[i];
+          if (KV != KV_BF16) {
+            sm[u] = reinterpret_cast<const int8_t*>(row)[QW + h];
+            se[u] = reinterpret_cast<const int8_t*>(row)[QW + H + h];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r0 + g + u * groups < cnt) {
+          const float p = expf(sraw[u] - m);
+          if (j == 0) l += p;
+          const float num = bf16_round(
+              KV == KV_BF16 ? p : p * head_scale_of(sm[u], se[u]));
+          float f[F];
+          widen_lane<KV>(raw[u], high, f);
+#pragma unroll
+          for (int e = 0; e < F; ++e) acc[e] = fmaf(num, f[e], acc[e]);
+        }
+      }
+    }
+    // the key groups' sums: lanes of one feature group within a warp, then
+    // the warps in order
+#pragma unroll
+    for (int e = 0; e < F; ++e)
+      for (int off = G; off < 32; off <<= 1)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    l = warp_sum(l);
+    if (lane < G)
+#pragma unroll
+      for (int e = 0; e < F; ++e) accs[warp][lane * F + e] = acc[e];
+    if (lane == 0) ls[warp] = l;
+    __syncthreads();
+    float a = 0.f, lsum = 0.f;
+    for (int w = 0; w < kAttnWarps; ++w) {
+      if (tid < Dh) a += accs[w][tid];
+      lsum += ls[w];
+    }
+    if (chunks == 1) {  // 0 + a and 0 + l: the bits the ticket path gives
+      if (tid < Dh) orow[tid] = a / lsum;
+      return;
+    }
+    float* mine = part + (bh * S + s) * (Dh + 1);
+    if (tid < Dh) mine[tid] = a;
+    if (tid == 0) mine[Dh] = lsum;
+    __threadfence();  // the partial is visible device-wide before the ticket
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(tickets + bh, 1u) == (unsigned)(chunks - 1);
+    __syncthreads();  // also frees accs and ls for the next chunk
+    if (!last) continue;
+    __threadfence();
+    if (tid < Dh) {
+      float acc_all = 0.f, l_all = 0.f;
+      for (int t = 0; t < chunks; ++t) {  // chunk order: the same bits each run
+        const float* p = part + (bh * S + t) * (Dh + 1);
+        acc_all += __ldcg(p + tid);
+        l_all += __ldcg(p + Dh);
+      }
+      orow[tid] = acc_all / l_all;
+    }
+    if (tid == 0) tickets[bh] = 0;  // for the next layer's launch
+    return;  // the last ticket: every other chunk is done
   }
 }
 
@@ -586,37 +800,6 @@ cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
                                              out_stride, B, K, N, eps, st);
 }
 
-template <int KV>
-cudaError_t launch_attend(const float* qkv, const float* cosb,
-                          const float* sinb, void* kc, void* vc,
-                          const int* cur, const int* lo, float* o, int B,
-                          int T, int H, int Dh, float scale, cudaStream_t st) {
-  if (KV == KV_INT4) {  // the append is its own launch: see kv4_append_kernel
-    const size_t asmem = (size_t)(2 * H * Dh + 2 * H) * sizeof(float);
-    if (asmem > kDefaultSmem) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kv4_append_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)asmem);
-      if (e != cudaSuccess) return e;
-    }
-    kv4_append_kernel<<<B, kAttnThreads, asmem, st>>>(
-        qkv, cosb, sinb, static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
-        cur, lo, T, H, Dh);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  const size_t smem = (size_t)(3 * Dh + kAttnThreads + T) * sizeof(float);
-  if (smem > kDefaultSmem) {  // per device: set on every call
-    cudaError_t e = cudaFuncSetAttribute(
-        rope_append_attend_kernel<KV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  rope_append_attend_kernel<KV><<<dim3(H, B), kAttnThreads, smem, st>>>(
-      qkv, cosb, sinb, kc, vc, cur, lo, o, T, H, Dh, scale);
-  return cudaGetLastError();
-}
-
 struct StepArgs {
   float *x, *qkv, *o, *gu;
   const char *wqkv, *wo, *wgu, *wd;         // (L, N, K) of the weight tier
@@ -624,12 +807,51 @@ struct StepArgs {
   const float *ln1, *ln2, *cosb, *sinb;
   char *kc, *vc;
   const int *cur, *lo;
+  // attention scratch: scores (B, H, T), chunk maxima (B, H, S), partials
+  // (B, H, S, Dh + 1) f32; tickets (B * H), zero between launches
+  float *scores, *cmax, *part;
+  unsigned int* tickets;
   int B, D, H, Dh, I, L, T, kv_bits, group;
   float eps, scale;
   cudaStream_t st;
 };
 
-// The layer loop for one weight tier: five launches a layer, six on kv4.
+// One layer's attention on caches kl/vl: the kv4 append (kv4 only), then
+// the scores and values passes over the S = ceil(T / kAttnChunk) chunks.
+template <int KV>
+cudaError_t launch_attend(const StepArgs& a, char* kl, char* vl) {
+  const int B = a.B, T = a.T, H = a.H, Dh = a.Dh;
+  cudaError_t e;
+  if (KV == KV_INT4) {  // the append is its own launch: see kv4_append_kernel
+    const size_t asmem = (size_t)(2 * H * Dh + 2 * H) * sizeof(float);
+    if (asmem > kDefaultSmem) {  // per device: set on every call
+      e = cudaFuncSetAttribute(kv4_append_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)asmem);
+      if (e != cudaSuccess) return e;
+    }
+    kv4_append_kernel<<<B, kAttnThreads, asmem, a.st>>>(
+        a.qkv, a.cosb, a.sinb, reinterpret_cast<int8_t*>(kl),
+        reinterpret_cast<int8_t*>(vl), a.cur, a.lo, T, H, Dh);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  // chunks a row may have, and blocks for them: enough for kAttnBlocks in
+  // all, so a long cache's many chunks past every window cost no launch
+  // of an empty block, yet a short batch still spreads over the card
+  const int S = (T + kAttnChunk - 1) / kAttnChunk;
+  const dim3 grid(min(S, (kAttnBlocks + B * H - 1) / (B * H)), H, B);
+  attend_scores_kernel<KV><<<grid, kAttnThreads, 0, a.st>>>(
+      a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo, a.scores, a.cmax, T, H, Dh,
+      a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attend_values_kernel<KV><<<grid, kAttnThreads, 0, a.st>>>(
+      vl, a.cur, a.lo, a.scores, a.cmax, a.part, a.tickets, a.o, T, H, Dh);
+  return cudaGetLastError();
+}
+
+// The layer loop for one weight tier: six launches a layer, seven on kv4.
 template <int WT>
 cudaError_t run_layers(const StepArgs& a) {
   const int HD = a.H * a.Dh, D = a.D, I = a.I, B = a.B;
@@ -655,15 +877,9 @@ cudaError_t run_layers(const StepArgs& a) {
         a.x, D, a.ln1 + (size_t)l * D, weights(a.wqkv, a.sqkv, l, 3 * HD, D),
         a.qkv, 3 * HD, B, D, 3 * HD, a.eps, a.st);
     if (e != cudaSuccess) return e;
-    if (a.kv_bits == KV_INT8)
-      e = launch_attend<KV_INT8>(a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo,
-                                 a.o, B, a.T, a.H, a.Dh, a.scale, a.st);
-    else if (a.kv_bits == KV_INT4)
-      e = launch_attend<KV_INT4>(a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo,
-                                 a.o, B, a.T, a.H, a.Dh, a.scale, a.st);
-    else
-      e = launch_attend<KV_BF16>(a.qkv, a.cosb, a.sinb, kl, vl, a.cur, a.lo,
-                                 a.o, B, a.T, a.H, a.Dh, a.scale, a.st);
+    e = a.kv_bits == KV_INT8   ? launch_attend<KV_INT8>(a, kl, vl)
+        : a.kv_bits == KV_INT4 ? launch_attend<KV_INT4>(a, kl, vl)
+                               : launch_attend<KV_BF16>(a, kl, vl);
     if (e != cudaSuccess) return e;
     e = launch_gemv<IN_NONE, true, WT>(a.o, HD, nullptr,
                                        weights(a.wo, a.so, l, D, HD), a.x, D,
@@ -694,7 +910,10 @@ extern "C" {
 // ln1/ln2 (L, D) f32; cos/sin (B, Dh) f32 at each row's rope position;
 // caches kc/vc (L, B, T, HD) bf16 (kv_bits 0), (L, B, T, HD + 128) int8 (8)
 // or (L, B, T, HD/2 + 128) int8 (4), written only at row cur[b] of row b;
-// cur and lo (B,) int32.
+// cur and lo (B,) int32; attention scratch with S = ceil(T / C),
+// C = decode_step_attn_chunk(), of any contents: scores (B, H, T), cmax
+// (B, H, S), part (B, H, S, Dh + 1) f32; tickets (B * H) uint32, zero on
+// entry and left zero, used by no other stream while the step runs.
 // Returns the first CUDA error of any launch (0 on success).
 int decode_step_launch(void* x, void* qkv, void* o, void* gu,
                        const void* wqkv, const void* wo, const void* wgu,
@@ -702,15 +921,16 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
                        const void* sgu, const void* sd, const void* ln1,
                        const void* ln2, const void* cosb, const void* sinb,
                        void* kc, void* vc, const void* cur, const void* lo,
+                       void* scores, void* cmax, void* part, void* tickets,
                        int B, int D, int H, int Dh, int I, int L, int T,
                        int kv_bits, int weight_bits, int group, float eps,
                        float scale, void* stream) {
   const int HD = H * Dh;
   const bool quant = weight_bits != W_BF16;
-  if (B < 1 || B > kMaxB || D % 8 || I % 8 || HD % 8 || kAttnThreads % Dh ||
+  if (B < 1 || B > kMaxB || D % 8 || I % 8 || Dh % 16 || Dh > kMaxDh ||
       T < 1 || (kv_bits && 2 * H > kKvPad) ||
       (kv_bits != KV_BF16 && kv_bits != KV_INT8 && kv_bits != KV_INT4) ||
-      (kv_bits == KV_INT4 && (Dh % 2 || HD % 256)) ||
+      (kv_bits == KV_INT4 && HD % 256) ||
       (weight_bits != W_BF16 && weight_bits != W_INT8 &&
        weight_bits != W_INT4) ||
       (quant && (group < 8 || group % 8 || D % group || HD % group ||
@@ -737,6 +957,10 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
   a.vc = static_cast<char*>(vc);
   a.cur = static_cast<const int*>(cur);
   a.lo = static_cast<const int*>(lo);
+  a.scores = static_cast<float*>(scores);
+  a.cmax = static_cast<float*>(cmax);
+  a.part = static_cast<float*>(part);
+  a.tickets = static_cast<unsigned int*>(tickets);
   a.B = B, a.D = D, a.H = H, a.Dh = Dh, a.I = I, a.L = L, a.T = T;
   a.kv_bits = kv_bits, a.group = group, a.eps = eps, a.scale = scale;
   a.st = static_cast<cudaStream_t>(stream);
@@ -744,5 +968,8 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
   if (weight_bits == W_INT4) return (int)run_layers<W_INT4>(a);
   return (int)run_layers<W_BF16>(a);
 }
+
+// Keys of a row's window one attention block owns, as built.
+int decode_step_attn_chunk() { return kAttnChunk; }
 
 }  // extern "C"

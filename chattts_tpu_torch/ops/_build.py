@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -43,26 +43,28 @@ def nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, defines: Sequence[str] = ()) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join((*NVCC_FLAGS, *defines))
+    digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
     return build_dir() / f"{src.stem}-{digest}.so"
 
 
-def build(sources: List[str]) -> Dict[str, float]:
+def build(sources: List[str], defines: Sequence[str] = ()) -> Dict[str, float]:
     """Compile every source not built yet, one ``nvcc`` each, all started
-    together.  Returns {source: seconds} for the ones compiled; raises with
-    the compiler's output if any fails.  The ptxas report (registers,
-    shared memory, spills) is kept beside each library as ``.log``."""
+    together, with ``defines`` (``-DNAME=value``) added to the flags.
+    Returns {source: seconds} for the ones compiled; raises with the
+    compiler's output if any fails.  The ptxas report (registers, shared
+    memory, spills) is kept beside each library as ``.log``."""
     build_dir().mkdir(parents=True, exist_ok=True)
     jobs = {}
     for source in sources:
-        out = library_path(source)
+        out = library_path(source, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / source)]
         jobs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
                         tmp, out, time.perf_counter())
@@ -83,16 +85,18 @@ def build(sources: List[str]) -> Dict[str, float]:
 class CudaLibrary:
     """One ``csrc`` source, built and loaded on first use."""
 
-    def __init__(self, source: str):
+    def __init__(self, source: str, defines: Sequence[str] = ()):
         self.source = source
+        self.defines = tuple(defines)
         self._lib = None
 
     def get(self) -> ctypes.CDLL:
         if self._lib is None:
-            build([self.source])
-            self._lib = ctypes.CDLL(str(library_path(self.source)))
+            build([self.source], self.defines)
+            self._lib = ctypes.CDLL(str(library_path(self.source,
+                                                     self.defines)))
         return self._lib
 
     def ptxas_report(self) -> str:
-        log = library_path(self.source).with_suffix(".log")
+        log = library_path(self.source, self.defines).with_suffix(".log")
         return log.read_text() if log.exists() else ""

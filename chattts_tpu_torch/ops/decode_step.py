@@ -48,9 +48,15 @@ clamped.
 Bound on an H100 at the full config: every weight is read once a step,
 L*(4*D*D + 3*D*I) parameters of 2, 1 or 1/2 bytes (377, 189 or 94 MB: ~113,
 ~57 or ~28 us at 3.35 TB/s) plus their scales, plus the KV read of
-2*L*sum_b(cur_b-lo_b+1)*W bytes and the appended rows 2*L*B*W, with W =
-2*HD (bf16), HD + KV_PAD (kv8) or HD/2 + KV_PAD (kv4).  The kernel's design
-is described at the top of ``csrc/decode_step.cu``.
+2*L*sum_b(cur_b-lo_b)*R bytes and the appended rows 2*L*B*W, with W =
+2*HD (bf16), HD + KV_PAD (kv8) or HD/2 + KV_PAD (kv4) and R the bytes of a
+row attention reads (W on bf16; the values and one 32-byte sector of head
+scales on kv8 and kv4).  The kernel's design is described at the top of
+``csrc/decode_step.cu``: per layer four gemvs and the attention pair
+(scores, then values over chunks of :attr:`DecodeStep.attn_chunk` keys, as
+the library was built), six launches, seven on kv4.  The wrapper allocates
+the pair's scratch on every call and keeps its tickets (one counter per
+(row, head), which the kernel leaves at zero) per device and stream.
 """
 
 from __future__ import annotations
@@ -373,9 +379,14 @@ class DecodeStep:
     under the variant's name; ``launches`` is their sum and can be set to 0.
     """
 
-    def __init__(self):
+    def __init__(self, defines: tuple = ()):
+        """``defines`` (``-DNAME=v``, such as ``-DATTN_CHUNK=32``) build a
+        library of their own, to compare attention chunk sizes and grids on
+        the card."""
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
-        self.library = CudaLibrary("decode_step.cu")
+        self.library = CudaLibrary("decode_step.cu", defines)
+        self._chunk = None
+        self._tickets: Dict[tuple, torch.Tensor] = {}
 
     @property
     def launches(self) -> int:
@@ -390,9 +401,29 @@ class DecodeStep:
     def _fn(self):
         fn = self.library.get().decode_step_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         return fn
+
+    @property
+    def attn_chunk(self) -> int:
+        """Keys of a row's window one attention block owns, as the
+        library was built (builds it on first use)."""
+        if self._chunk is None:
+            self._chunk = int(self.library.get().decode_step_attn_chunk())
+        return self._chunk
+
+    def tickets(self, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+        """The attention pair's (row, head) tickets for ``stream``, at
+        least ``n``: zeros, which every launch leaves zero, so one buffer
+        serves every layer and step issued on that stream; steps on two
+        streams never share one."""
+        key = (stream.device, stream.cuda_stream)
+        t = self._tickets.get(key)
+        if t is None or t.numel() < n:
+            t = torch.zeros(n, dtype=torch.int32, device=stream.device)
+            self._tickets[key] = t
+        return t
 
     def __call__(self, packed: dict, emb: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -435,9 +466,9 @@ class DecodeStep:
             raise ValueError("too many heads for the kv-int8 scale lanes")
         if not 1 <= B <= MAX_ROWS:
             raise ValueError(f"the decode step takes 1 to {MAX_ROWS} rows")
-        if D % 8 or I % 8 or HD % 8 or 128 % Dh:
-            raise ValueError("the decode step needs D, I, HD multiples of 8 "
-                             "and Dh dividing 128")
+        if D % 8 or I % 8 or Dh % 16 or 128 % Dh:
+            raise ValueError("the decode step needs D, I multiples of 8 and "
+                             "Dh a multiple of 16 dividing 128")
         variant = variant_of(k_cache, cur, packed, cfg)
         if isinstance(cur, torch.Tensor):
             if cur.ndim > 1 or (cur.ndim == 1 and cur.shape[0] != B):
@@ -457,17 +488,23 @@ class DecodeStep:
         qkv = torch.empty((B, 3 * HD), dtype=torch.float32, device=dev)
         o = torch.empty((B, HD), dtype=torch.float32, device=dev)
         gu = torch.empty((B, 2 * I), dtype=torch.float32, device=dev)
+        S = -(-T // self.attn_chunk)
+        scores = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+        cmax = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        part = torch.empty((B, H, S, Dh + 1), dtype=torch.float32, device=dev)
         scales = [packed["s" + name[1:]].data_ptr() if wb else None
                   for name in MATRICES]
+        stream = torch.cuda.current_stream(dev)
         err = self._fn()(
             x.data_ptr(), qkv.data_ptr(), o.data_ptr(), gu.data_ptr(),
             *(packed[name].data_ptr() for name in MATRICES), *scales,
             packed["ln1"].data_ptr(), packed["ln2"].data_ptr(),
             cos.data_ptr(), sin.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), cur32.data_ptr(), lo32.data_ptr(),
+            scores.data_ptr(), cmax.data_ptr(), part.data_ptr(),
+            self.tickets(stream, B * H).data_ptr(),
             B, D, H, Dh, I, L, T, kvb, wb, gs,
-            cfg.rms_norm_eps, 1.0 / float(np.sqrt(Dh)),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cfg.rms_norm_eps, 1.0 / float(np.sqrt(Dh)), stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"decode_step_launch failed with CUDA error "
                                f"{err}")

@@ -22,7 +22,11 @@
    plain version and one yardstick written with torch.matmul and
    scaled_dot_product_attention (``library_ms``; the port never calls it),
    beside the least time the card needs for the same bytes and operations
-   (K2 is timed in phase 5, on a call of its own run).
+   (K2 is timed in phase 5, on a call of its own run).  Every timed call
+   also gets one row per CUDA kernel of the step ("kernel rows"): its
+   launches a step, device ms a launch and a step from a profile, its own
+   bound, and the one PyTorch call that computes the same function
+   (torch.matmul per gemv shape, SDPA for the attention pair).
 3. Holds every variant against the plain version on one full-width layer
    with the MLP off and wo the identity, so attention's output is compared
    undiluted, and shows that this check rejects planted attention faults:
@@ -59,6 +63,9 @@
    geometry's cache (512 + 2048 rows) on 96 seeded requests, more than 32
    slots live at its peak (K2+K6+K4, timed on a call of that run); and
    ``Chat.infer`` with ``use_engine=True, weight_bits=8`` (K2+K3+K4).
+
+``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
+attention chunk at 32, 64 and 128 keys, side by side.
 
 TF32 is switched off for matmuls and cuDNN convolutions, so float32 math on
 the card is float32.  Exits non-zero without a result line when no CUDA
@@ -188,6 +195,239 @@ def _device_profile(fn):
     return sum(r[2] for r in rows) / 1e6, wall, rows
 
 
+def _kernel_events(fn):
+    """Run fn once under torch.profiler: its device kernels in the order
+    they ran, [(name, device us)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: e.time_range.start)
+    return [(e.name.replace("(anonymous namespace)::", "")
+             .removeprefix("void ").split("(")[0].strip(),
+             e.time_range.elapsed_us()) for e in events]
+
+
+# the step's kernels by the row each launch gets: the gemv's instantiation
+# <mode, add, ...> names its matrix; qkv and gate/up share mode 1, and the
+# one that the attention (or the kv4 append) follows is qkv
+GEMV_ROWS = {"0": "gemv wo", "2": "gemv down"}
+ATTN_ROWS = ("attend_scores", "attend_values")
+
+
+def _kernel_rows_of(names):
+    """The row of each launch of a run of steps (see GEMV_ROWS), None for
+    a kernel of the wrapper's torch ops."""
+    rows = []
+    for i, name in enumerate(names):
+        row = None
+        if name.startswith("gemv_kernel<"):
+            mode = name[len("gemv_kernel<")]
+            after = names[i + 1] if i + 1 < len(names) else ""
+            row = GEMV_ROWS.get(mode) or (
+                "gemv qkv" if after.startswith(ATTN_ROWS + ("kv4_append",))
+                else "gemv gate/up")
+        for kernel in ATTN_ROWS + ("kv4_append_kernel",):
+            if name.startswith(kernel):
+                row = kernel
+        rows.append(row)
+    return rows
+
+
+def _kv_row_bytes(cfg, kv_bits):
+    """(bytes of a cache row, bytes of it that attention reads): a row is
+    2 HD, HD + 128 or HD/2 + 128 bytes wide, and the kernels read the bf16
+    row whole, of a quantized one only its values and the 2 H head-scale
+    bytes, one 32-byte sector here (the pad past the scales is written by
+    an append, never read)."""
+    from chattts_tpu_torch.ops.kv_quant import KV_PAD
+
+    H = cfg.num_attention_heads
+    HD = H * cfg.head_dim
+    if not kv_bits:
+        return 2 * HD, 2 * HD
+    qw = HD if kv_bits == 8 else HD // 2
+    return qw + KV_PAD, qw + -(-2 * H // 32) * 32
+
+
+def _kernel_bounds(cfg, seen, kv_bits, weight_bits):
+    """Least time of one launch of each kernel of the step, the step's
+    bound (_step_bound_ms) split by kernel: {row: (ms, "bytes" or
+    "operations")}.  Each input byte read once, each output byte written
+    once: a gemv's weights and scales, its f32 input rows (and the norm's
+    weights), its output rows (read too where it adds to them); the
+    attention pair's visible KV rows as it reads them (_kv_row_bytes; on
+    bf16 and kv8 the row it appends is its output, on kv4 kv4_append's
+    output is its input), q (and k, v where it appends), cos and sin, its
+    appended rows and o; kv4's append its k and v, cos and sin, and the
+    two rows it writes.  Rows whose window is empty append nothing."""
+    from chattts_tpu_torch.ops.decode_step import int4_group
+
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    Dh = cfg.head_dim
+    HD = cfg.num_attention_heads * Dh
+    B, rows = len(seen), sum(seen)
+    live = sum(1 for n in seen if n > 0)
+    row_bytes, read_bytes = _kv_row_bytes(cfg, kv_bits)
+    group = {0: None, 8: D, 4: int4_group(D)}[weight_bits]
+    wb = {0: 2, 8: 1, 4: 0.5}[weight_bits]
+
+    def gemv(N, K, in_floats, adds, norm):
+        scales = N * (K // group) * 4 if group else 0
+        return (N * K * wb + scales + B * in_floats * 4 + (K * 4 if norm
+                                                           else 0)
+                + B * N * 4 * (2 if adds else 1), 2 * B * N * K)
+
+    rope = 2 * B * Dh * 4 + 2 * B * 4                     # cos, sin, cur, lo
+    appends = kv_bits != 4
+    append = B * 2 * HD * 4 + 2 * live * row_bytes       # k, v in; rows out
+    work = {
+        "gemv qkv": gemv(3 * HD, D, D, False, True),
+        "gemv wo": gemv(D, HD, HD, True, False),
+        "gemv gate/up": gemv(2 * I, D, D, False, True),
+        "gemv down": gemv(D, I, 2 * I, True, False),
+        "attention pair": (2 * (rows - live if appends else rows) * read_bytes
+                           + rope + B * HD * 4 + (append if appends else 0)
+                           + B * HD * 4, 4 * rows * HD)}
+    if not appends:
+        work["kv4_append_kernel"] = (append + rope, 0)
+    out = {}
+    for row, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        out[row] = (max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _library_kernels(cfg, packed, emb, kk, vk, cur, lo, pos):
+    """Device milliseconds of the one PyTorch call that computes each
+    kernel's function on one layer's inputs (a yardstick; the port never
+    calls them): torch.matmul of bf16 weights (dequantized ahead, as
+    _library_weights does) for each gemv, scaled_dot_product_attention on
+    layer 0's roped q and each row's window [lo_b, cur_b] of K and V,
+    gathered ahead of the call into (B, H, N, Dh) bf16 (a quantized cache
+    dequantized), N the longest window, under a mask of each row's own
+    length.  {row: ms a launch}."""
+    import torch
+    import torch.nn.functional as F
+    from chattts_tpu_torch.ops import kv_quant
+    from chattts_tpu_torch.ops.decode_step import (_mm, _rms, _rope,
+                                                   kv_bits_of, rope_rows)
+
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    HD, D, I = H * Dh, cfg.hidden_size, cfg.intermediate_size
+    B = emb.shape[0]
+    lib = _library_weights(packed, cfg)
+    gen = torch.Generator(device=emb.device).manual_seed(9)
+    out = {}
+    for row, name, K in (("gemv qkv", "wqkv", D), ("gemv wo", "wo", HD),
+                         ("gemv gate/up", "wgu", D), ("gemv down", "wd", I)):
+        w = lib[name][0]
+        x = torch.randn((B, K), generator=gen, device=emb.device
+                        ).bfloat16()
+        out[row] = _device_ms(lambda: x @ w.T)
+    cos, sin = rope_rows(cfg, pos)
+    qkv = _mm(_rms(emb.float(), packed["ln1"][0], cfg.rms_norm_eps),
+              lib["wqkv"][0])
+    q = _rope(qkv[:, :HD], cos, sin, H).bfloat16().reshape(B, H, 1, Dh)
+    cur_rows = _cur_rows(cur, B, emb.device)
+    n = (cur_rows - lo + 1).clamp(min=0)
+    t = torch.arange(max(int(n.max()), 1), device=emb.device)
+    # row b's keys lo_b, lo_b + 1, ...; the rows past its window are masked
+    at = (lo[:, None] + t[None, :]).clamp(0, kk.shape[2] - 1)
+    rows = torch.arange(B, device=emb.device)[:, None]
+    dequantize = {0: lambda r, c: r, 8: kv_quant.kv8_dequantize,
+                  4: kv_quant.kv4_dequantize}[kv_bits_of(kk, cfg)]
+    keys, vals = (dequantize(c[0][rows, at], cfg).bfloat16()
+                  .reshape(B, len(t), H, Dh).transpose(1, 2).contiguous()
+                  for c in (kk, vk))
+    mask = (t[None, :] < n[:, None])[:, None, None, :]
+    out["attention pair"] = _device_ms(lambda: F.scaled_dot_product_attention(
+        q, keys, vals, attn_mask=mask))
+    return out
+
+
+def _device_ms(fn, iters=50):
+    """Device milliseconds of one call of fn: CUDA events around ``iters``
+    calls queued behind a spin of the card (torch.cuda._sleep, about 25
+    ms), so all of them are queued before the first runs and a loop of
+    small calls times the card, not the host's pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _print_kernel_rows(variant, cfg, packed, emb, kk, vk, cur, lo, pos,
+                       seen, steps=5):
+    """The step's kernels, one row each: launches a step, device ms a
+    launch (from a profile of ``steps`` steps) and a step, the bound a step
+    (_kernel_bounds) and the library call's device ms a step
+    (_library_kernels, once a layer).  Prints the rows and one JSON line of
+    them."""
+    from chattts_tpu_torch.ops.decode_step import (decode_step, kv_bits_of,
+                                                   weight_bits_of)
+
+    L = cfg.num_hidden_layers
+    events = _kernel_events(lambda: [decode_step(
+        packed, emb, kk, vk, cur, lo, pos, cfg) for _ in range(steps)])
+    rows, names = {}, {}
+    for (name, us), row in zip(events,
+                               _kernel_rows_of([n for n, _ in events])):
+        row = row or "torch ops of the wrapper"
+        names.setdefault(row, name)
+        n, total = rows.get(row, (0, 0.0))
+        rows[row] = (n + 1, total + us)
+    pair = [rows[r] for r in ATTN_ROWS]
+    rows["attention pair"] = (pair[0][0], sum(t for _, t in pair))
+    names["attention pair"] = "attend_scores + attend_values"
+    bounds = _kernel_bounds(cfg, seen, kv_bits_of(kk, cfg),
+                            weight_bits_of(packed, cfg))
+    library = _library_kernels(cfg, packed, emb, kk, vk, cur, lo, pos)
+    print(f"{variant} kernels, {steps} steps profiled: launches a step, ms a "
+          f"launch, ms a step, bound ms a step, library ms a step (one call "
+          f"a layer, device time)")
+    table = []
+    for row, (n, us) in rows.items():
+        # a profile can miss a launch at its start: a step's launches are
+        # the nearest whole number
+        per_step = max(1, round(n / steps))
+        entry = {"row": row, "kernel": names[row],
+                 "launches_a_step": per_step, "ms_a_launch": us / n / 1e3}
+        entry["ms_a_step"] = entry["ms_a_launch"] * per_step
+        if row in bounds:
+            entry["bound_ms_a_step"] = bounds[row][0] * per_step
+            entry["bound_by"] = bounds[row][1]
+        entry["library_ms_a_step"] = (library[row] * L if row in library
+                                      else None)
+        table.append(entry)
+        lib = entry["library_ms_a_step"]
+        print(f"  {row:24s} {names[row][:40]:40s} {per_step:5d} "
+              f"{entry['ms_a_launch']:9.5f} {entry['ms_a_step']:8.4f}"
+              + (f"  bound {entry['bound_ms_a_step']:.5f} "
+                 f"({entry['bound_by']})" if row in bounds else "")
+              + ("" if lib is None else
+                 f"  library {lib:.4f} "
+                 f"({'SDPA' if row == 'attention pair' else 'matmul'})"))
+    print("kernel rows " + json.dumps({"variant": variant, "rows": table}))
+
+
 def _print_profile(title, device_s, rows, top=8):
     print(f"{title}: device kernel time {device_s * 1e3:.3f} ms in "
           f"{sum(r[1] for r in rows)} launches")
@@ -294,22 +534,24 @@ def _step_bound_ms(cfg, seen, kv_bits, weight_bits=0):
     1/2 bytes a value by tier, with an f32 scale per (D-row group, column)
     on int8 and per (128-row group, column) on int4; a cache row takes
     2 HD, HD + 128 or HD/2 + 128 bytes.  The products are bf16 by f32-exact
-    integers on every tier, so the operations go against the bf16 peak."""
+    integers on every tier, so the operations go against the bf16 peak.
+    Row b reads seen[b] - 1 cache rows as attention reads them and appends
+    one whole row (_kv_row_bytes), none where its window is empty."""
     from chattts_tpu_torch.ops.decode_step import int4_group
-    from chattts_tpu_torch.ops.kv_quant import KV_PAD
 
     D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     HD = cfg.num_attention_heads * cfg.head_dim
     B = len(seen)
-    row_bytes = {0: 2 * HD, 8: HD + KV_PAD, 4: HD // 2 + KV_PAD}[kv_bits]
+    row_bytes, read_bytes = _kv_row_bytes(cfg, kv_bits)
     rows = sum(seen)
+    live = sum(1 for n in seen if n > 0)
     values = L * (4 * D * D + 3 * D * I)
     scale_bytes = {0: 0, 8: L * (3 * HD + D + 2 * I + D * (I // D)) * 4,
                    4: values // int4_group(D) * 4 if weight_bits == 4 else 0
                    }[weight_bits]
     weight_bytes = (values * {0: 4, 8: 2, 4: 1}[weight_bits] // 2
                     + scale_bytes + 2 * L * D * 4)
-    kv_bytes = 2 * L * (rows + B) * row_bytes            # read + append
+    kv_bytes = 2 * L * ((rows - live) * read_bytes + live * row_bytes)
     io_bytes = 2 * B * D * 4 + 2 * B * cfg.head_dim * 4 + 3 * B * 4
     nbytes = weight_bytes + kv_bytes + io_bytes
     flops = 2 * B * L * (4 * D * D + 3 * D * I) + 4 * L * rows * HD
@@ -602,13 +844,13 @@ def _kernel_case(variant, cfg, packs, norm, B, T, gen, dev, cur=None):
 def _time_call(variant, cfg, packed, emb, kk, vk, cur, lo, pos, what,
                profile=False):
     """Kernel, plain and library milliseconds of one call of a variant on
-    the given tensors (the caches are overwritten at row cur_b), and the
-    call's bound from its own positions."""
+    the given tensors (the caches are overwritten at row cur_b), the call's
+    bound from its own positions, and the host time of the wrapper's call
+    (printed)."""
     import torch
     from chattts_tpu_torch.ops.decode_step import (decode_step,
-                                                   decode_step_plain)
-
-    from chattts_tpu_torch.ops.decode_step import kv_bits_of, weight_bits_of
+                                                   decode_step_plain,
+                                                   kv_bits_of, weight_bits_of)
 
     B, T = emb.shape[0], kk.shape[2]
     ms = _time_ms(lambda: decode_step(packed, emb, kk, vk, cur, lo, pos, cfg))
@@ -624,14 +866,23 @@ def _time_call(variant, cfg, packed, emb, kk, vk, cur, lo, pos, what,
     bound_ms, bound_by = _step_bound_ms(cfg, seen.tolist(),
                                         kv_bits_of(kk, cfg),
                                         weight_bits_of(packed, cfg))
+    # the host's share: the wrapper's call with the card idle, so no launch
+    # waits for a free queue slot (median of 10)
+    enqueue = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step(packed, emb, kk, vk, cur, lo, pos, cfg)
+        enqueue.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    host_ms = sorted(enqueue)[5] * 1e3
     if profile:
-        device_s, _, rows = _device_profile(lambda: [decode_step(
-            packed, emb, kk, vk, cur, lo, pos, cfg) for _ in range(5)])
-        _print_profile(f"{variant} profile, 5 steps", device_s, rows)
+        _print_kernel_rows(variant, cfg, packed, emb, kk, vk, cur, lo, pos,
+                           seen.tolist())
     print(f"{variant} timing on {what}: B {B}, T {T}, visible keys "
           f"{int(seen.min())}..{int(seen.max())}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
-          f"ms ({bound_by})")
+          f"ms ({bound_by}); the wrapper's host time {host_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1469,6 +1720,89 @@ def phase_engine_64(chat, kernels, launches):
         profile=True))
 
 
+def sweep_chunk(dev, chunks=(32, 64, 128), blocks=(1024, 2112, 4096)):
+    """``python3 chip_smoke.py --sweep-chunk``: the attention chunk C at 32,
+    64 and 128 keys, each with the grid aimed at ``blocks`` blocks
+    (ATTN_BLOCKS), one library each (built together): at the Generator's
+    shape on each cache tier (B 8, T 512, cur 256), at 16 slots on the kv8
+    cache (T 2560, 171..430 keys) and at 64 slots on kv4 with int8 weights
+    (T 2560, 24..247 keys), each chunk's step against the plain version
+    (hidden within HIDDEN_ATOL), then the attention pair's device ms a step
+    (profiled) and the step's ms (CUDA events), the chunks in turns
+    (32, 64, 128, 128, 64, 32)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from chattts_tpu_torch.config import Config
+    from chattts_tpu_torch.models import llama
+    from chattts_tpu_torch.ops.decode_step import (DecodeStep,
+                                                   decode_step_plain,
+                                                   pack_weights)
+    from chattts_tpu_torch.weights import to_device
+
+    steppers = {(c, n): DecodeStep(defines=(f"-DATTN_CHUNK={c}",
+                                            f"-DATTN_BLOCKS={n}"))
+                for c in chunks for n in blocks}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(chunks)) as pool:
+        list(pool.map(lambda st: st.library.get(), steppers.values()))
+    print(f"sweep: {len(steppers)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = Config().gpt
+    gen = torch.Generator().manual_seed(1)
+    params = to_device(llama.init_params(gen, cfg), dev)
+    packs = {bits: pack_weights(params, cfg, weight_bits=bits)
+             for bits in (0, 8)}
+    L, D = cfg.num_hidden_layers, cfg.hidden_size
+    HD = cfg.num_attention_heads * cfg.head_dim
+    tgen = torch.Generator().manual_seed(5)
+    lo_g = torch.tensor([0, 0, 3, 5, 0, 17, 1, 64])
+    cur_e = 512 + torch.randint(0, 256, (16,), generator=tgen)
+    lo_e = 512 - torch.randint(100, 201, (16,), generator=tgen)
+    n64 = torch.randint(24, 248, (64,), generator=tgen)
+    cur64 = 300 + torch.randint(0, 2000, (64,), generator=tgen)
+    cases = [(v, 8, 512, 256, torch.full((8,), 256), lo_g)
+             for v in ("k1", "k3", "k6")]
+    cases += [("k2k3", 16, 2560, cur_e, cur_e, lo_e),
+              ("k2k6k4", 64, 2560, cur64, cur64, cur64 - n64 + 1)]
+    norm = params["norm"]
+    for variant, B, T, cur, cur_rows, lo in cases:
+        weight_bits, kv_bits, _ = _tier(variant)
+        packed = packs[weight_bits]
+        kk, vk = _random_caches((L, B, T, HD), kv_bits, cfg, gen, dev)
+        emb = (torch.randn((B, D), generator=gen) * 0.3).to(dev)
+        cur = cur.to(dev) if isinstance(cur, torch.Tensor) else cur
+        cur_rows, lo = cur_rows.to(dev), lo.to(dev)
+        pos = cur_rows - lo
+        xp = decode_step_plain(packed, emb, kk.clone(), vk.clone(), cur, lo,
+                               pos, cfg)
+        hp = llama.rms_norm(xp, norm, cfg.rms_norm_eps)
+        for c, st in steppers.items():
+            xk = st(packed, emb, kk.clone(), vk.clone(), cur, lo, pos, cfg)
+            err = float((llama.rms_norm(xk, norm, cfg.rms_norm_eps)
+                         - hp).abs()[(cur_rows - lo + 1) >= KV4_KEYS_HELD]
+                        .max())
+            check(err <= HIDDEN_ATOL, f"chunk {c}, {variant}: hidden {err}")
+        seen = cur_rows - lo + 1
+        times = {c: [] for c in steppers}
+        for c in (*steppers, *list(steppers)[::-1]):
+            st = steppers[c]
+
+            def step():
+                return st(packed, emb, kk, vk, cur, lo, pos, cfg)
+
+            attn = sum(us for name, us in _kernel_events(
+                lambda: [step() for _ in range(5)])
+                if name.startswith(ATTN_ROWS)) / 5 / 1e3
+            times[c].append((attn, _time_ms(step)))
+        print(f"sweep {variant}, B {B}, T {T}, keys {int(seen.min())}.."
+              f"{int(seen.max())}: chunk: attention pair ms a step, step ms "
+              "(two turns each) | " + " | ".join(
+                  f"C {c}, blocks {n}: " + ", ".join(f"{a:.4f} {t:.4f}"
+                                                      for a, t in v)
+                  for (c, n), v in times.items()))
+
+
 def main():
     import torch
 
@@ -1485,6 +1819,10 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--sweep-chunk"]:
+        sweep_chunk(dev)
+        print(card)
+        return 0
 
     phase_build()
     kernels = phase_kernel(dev)

@@ -69,9 +69,11 @@ def test_cuda_sources_stand_alone():
         assert set(includes) <= {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
         assert 'extern "C"' in text
     text = (csrc / "decode_step.cu").read_text()
-    for kernel in ("gemv_kernel", "rope_append_attend_kernel",
-                   "kv4_append_kernel", "decode_step_launch"):
+    for kernel in ("gemv_kernel", "attend_scores_kernel",
+                   "attend_values_kernel", "kv4_append_kernel",
+                   "decode_step_launch"):
         assert kernel in text
+    assert "rope_append_attend_kernel" not in text  # replaced by the pair
     for tier in ("W_INT8", "W_INT4", "KV_INT8", "KV_INT4"):
         assert tier in text
 

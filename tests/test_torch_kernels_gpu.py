@@ -62,6 +62,9 @@ QUANT_GEOMETRIES = {
 TIERS = [(8, 0, False, "k1k4"), (8, 8, True, "k2k3k4"), (4, 0, True, "k2k5"),
          (4, 8, False, "k3k5"), (0, 4, False, "k6"), (0, 4, True, "k2k6"),
          (4, 4, False, "k6k5"), (8, 4, True, "k2k6k4")]
+# and the bf16-weight variants of the bf16 and kv8 caches
+TIERS_ALL = TIERS + [(0, 0, False, "k1"), (0, 0, True, "k2"),
+                     (0, 8, False, "k3"), (0, 8, True, "k2k3")]
 
 
 @pytest.fixture()
@@ -110,9 +113,10 @@ def test_kernel_matches_plain(cuda, geom, B, cur):
         assert torch.equal(got[:, :, cur + 1:], base[:, :, cur + 1:])
 
 
-def _variant_inputs(cfg, B, T, dev, variant, seed=0):
+def _variant_inputs(cfg, B, T, dev, variant, seed=0, shared_cur=11):
     """Inputs of one variant: kv8 caches for k3, ragged positions for k2
-    (row 0 sees one key, row 1 writes the last cache row)."""
+    (row 0 sees one key, row 1 writes the last cache row); a shared
+    position is ``shared_cur`` with lo_b below 12."""
     params, packed, kc, vc, emb = _inputs(cfg, B, T, dev, seed)
     if "k3" in variant:
         kc = kv_quant.kv8_quantize(kc, cfg)
@@ -126,9 +130,9 @@ def _variant_inputs(cfg, B, T, dev, variant, seed=0):
         lo[0] = cur[0]
         cur_arg = cur.to(dev)
     else:
-        cur = torch.full((B,), 11)
+        cur = torch.full((B,), shared_cur)
         lo = torch.randint(0, 12, (B,), generator=gen)
-        cur_arg = 11
+        cur_arg = shared_cur
     return params, packed, kc, vc, emb, cur_arg, cur.to(dev), lo.to(dev)
 
 
@@ -188,14 +192,18 @@ def test_variant_matches_plain(cuda, geom, variant, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", ["k1", "k2", "k3", "k2k3"])
-def test_row_result_does_not_depend_on_the_batch(cuda, variant):
+@pytest.mark.parametrize("T", ["64", "3C+5"])
+@pytest.mark.parametrize("variant", ["k1", "k2", "k3", "k2k3", "k6", "k2k6"])
+def test_row_result_does_not_depend_on_the_batch(cuda, variant, T):
     """Rows of a 32-row launch equal the same rows launched alone and in a
-    batch of 16 (another gemv instantiation), bit for bit."""
-    cfg = GEOMETRIES["small"]
-    T = 64
-    _, packed, kc, vc, emb, cur_arg, cur, lo = _variant_inputs(
-        cfg, 32, T, cuda, variant)
+    batch of 16 (another gemv instantiation), bit for bit, on every cache
+    tier; at 3C + 5 rows the windows span several attention chunks (the
+    shared position is the last row)."""
+    T = 64 if T == "64" else _keys("T")
+    cfg = QUANT_GEOMETRIES["pairs"]
+    _, kv_bits, per_slot, _ = next(t for t in TIERS_ALL if t[3] == variant)
+    _, packed, kc, vc, emb, cur_arg, cur, lo = _tier_inputs(
+        cfg, 32, T, cuda, 0, kv_bits, per_slot, shared_cur=T - 1)
     pos = cur - lo
 
     def run(sl):
@@ -212,11 +220,12 @@ def test_row_result_does_not_depend_on_the_batch(cuda, variant):
         assert torch.equal(k, k32[:, sl]) and torch.equal(v, v32[:, sl])
 
 
-def _tier_inputs(cfg, B, T, dev, wbits, kvbits, per_slot, seed=0):
+def _tier_inputs(cfg, B, T, dev, wbits, kvbits, per_slot, seed=0,
+                 shared_cur=11):
     """Inputs of one tier: packed weights of ``wbits``, caches of
     ``kvbits``, positions as ``_variant_inputs`` makes them."""
     params, _, kc, vc, emb, cur_arg, cur, lo = _variant_inputs(
-        cfg, B, T, dev, "k2" if per_slot else "k1", seed)
+        cfg, B, T, dev, "k2" if per_slot else "k1", seed, shared_cur)
     packed = k1.pack_weights(params, cfg, weight_bits=wbits)
     if kvbits:
         quant = {8: kv_quant.kv8_quantize, 4: kv_quant.kv4_quantize}[kvbits]
@@ -344,6 +353,148 @@ def test_rows_33_to_64_of_the_earlier_variants(cuda, variant):
         atol=HIDDEN_ATOL, rtol=0)
     _check_rows(kk, kp, kc, cur, cfg)
     _check_rows(vk, vp, vc, cur, cfg)
+
+
+# one layer's attention output, undiluted (MLP off, wo the identity), held
+# to one bf16 ulp (2^-7 of the value) plus 3e-4: q is the gemv's sum, taken
+# in another order than the plain matmul's, so an element of
+# bf16(q * scale) can land one bf16 ulp apart, which moves a score by up to
+# 2^-8 of one of its terms and o by as much of the values' scale (O(1)
+# here; measured up to 1.3e-4 on outputs near zero), beside o's own
+# rounding.  A key dropped at a chunk edge moves o by about |v - o| / n:
+# test_attention_limit_rejects_a_dropped_edge_key shows the limit sees it.
+ATTN_RTOL, ATTN_ATOL = 2 ** -7, 3e-4
+# keys of a window as (a, b): a C + b, C the attention chunk the library
+# was built with; "T" is a whole cache of 3C + 5 rows, not a multiple of C
+WINDOWS = {"1": (0, 1), "C-1": (1, -1), "C": (1, 0), "C+1": (1, 1),
+           "2C+1": (2, 1), "T": (3, 5)}
+
+
+def _keys(window):
+    """Keys of ``window`` (a name of WINDOWS) at the built chunk."""
+    a, b = WINDOWS[window]
+    return a * k1.decode_step.attn_chunk + b
+
+
+def _attention_layer(kv_bits, B, T, windows, dev, seed=0):
+    """One layer of the "pairs" geometry (D == HD) whose MLP is off and
+    whose wo is the identity, so the step adds bf16(o) to the residual;
+    rows of ``windows[b]`` keys placed across a cache of T rows, a position
+    per row.  Returns the step's inputs and the packed weights."""
+    import dataclasses
+
+    cfg = dataclasses.replace(QUANT_GEOMETRIES["pairs"], num_hidden_layers=1)
+    _, packed, kc, vc, emb, _, _, _ = _tier_inputs(cfg, B, T, dev, 0, kv_bits,
+                                                   True, seed)
+    packed["wgu"].zero_()
+    packed["wd"].zero_()
+    packed["wo"].copy_(torch.eye(cfg.hidden_size, dtype=torch.bfloat16)[None])
+    n = torch.tensor(windows)
+    lo = (torch.arange(B) * 37) % (T - n + 1)
+    cur = lo + n - 1
+    return cfg, packed, kc, vc, emb, cur.to(dev), lo.to(dev)
+
+
+def _attention_error(cfg, packed, kc, vc, emb, cur, lo, drop=None):
+    """The kernel's step against the plain version's: the caches as
+    _check_rows and _check_quantized_rows hold them, and o against
+    ``attend_plain`` on the caches the kernel appended to (so an appended
+    quantized value that landed on the other side of a rounding tie is the
+    same on both sides) and on the plain step's roped q, after o's bf16
+    rounding: the largest |difference| / (ATTN_ATOL + ATTN_RTOL |o|), which
+    passes at 1 or less.  ``drop``: a key (its index in the window) that
+    the plain side leaves out, a fault planted on purpose."""
+    H = cfg.num_attention_heads
+    HD = H * cfg.head_dim
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    xk = k1.decode_step(packed, emb, kk, vk, cur, lo, cur - lo, cfg)
+    torch.cuda.synchronize()
+    k1.decode_step_plain(packed, emb, kp, vp, cur, lo, cur - lo, cfg)
+    check = _check_quantized_rows if kc.dtype == torch.int8 else _check_rows
+    check(kk, kp, kc, cur, cfg)
+    check(vk, vp, vc, cur, cfg)
+    cos, sin = k1.rope_rows(cfg, cur - lo)
+    qkv = k1._mm(k1._rms(emb.float(), packed["ln1"][0], cfg.rms_norm_eps),
+                 packed["wqkv"][0])
+    q = k1._rope(qkv[:, :HD], cos, sin, H)
+    t = torch.arange(kc.shape[2], device=emb.device)
+    visible = (t[None, :] >= lo[:, None]) & (t[None, :] <= cur[:, None])
+    if drop is not None:
+        visible &= t[None, :] != (lo + drop)[:, None]
+    o = k1.attend_plain(q, kk[0], vk[0], visible[:, None], cfg)
+    got, want = xk - emb, (emb + k1._bf(o)) - emb
+    lim = ATTN_ATOL + ATTN_RTOL * want.abs()
+    assert torch.isfinite(got).all()
+    return float(((got - want).abs() / lim).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 16, 64])
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_attention_chunk_edges(cuda, kv_bits, window, B):
+    """Windows at the attention chunk's edges, every row of one size,
+    placed from the first cache row onwards (T = 3C + 5)."""
+    err = _attention_error(*_attention_layer(
+        kv_bits, B, _keys("T"), [_keys(window)] * B, cuda))
+    assert err <= 1, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop", ["C-1", "C"])
+@pytest.mark.parametrize("window", ["C+1", "2C+1", "T"])
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_attention_limit_rejects_a_dropped_edge_key(cuda, kv_bits, window,
+                                                    drop):
+    """The chunk-edge limit holds a schedule that loses one key at a chunk
+    edge (the last of chunk 0, or the first of chunk 1) to account: the
+    kernel's o against a plain window without that key fails it."""
+    err = _attention_error(*_attention_layer(
+        kv_bits, 8, _keys("T"), [_keys(window)] * 8, cuda), drop=_keys(drop))
+    assert err > 1, err
+
+
+@pytest.mark.gpu
+def test_ticket_counters_are_reset(cuda):
+    """Two steps back to back, the second with fewer rows and another T, so
+    it reuses the first's (row, head) tickets: both right, and every ticket
+    zero after each step."""
+    sizes = [_keys(w) for w in WINDOWS]
+    for B, T in ((16, _keys("T")), (8, _keys("2C+1") + 8)):
+        windows = [min(sizes[b % len(sizes)], T) for b in range(B)]
+        err = _attention_error(*_attention_layer(8, B, T, windows, cuda,
+                                                 seed=B))
+        assert err <= 1, err
+        t = k1.decode_step.tickets(torch.cuda.current_stream(cuda), 1)
+        assert t.numel() >= B * QUANT_GEOMETRIES["pairs"].num_attention_heads
+        assert not t.any()
+
+
+@pytest.mark.gpu
+def test_steps_on_two_streams_keep_their_own_tickets(cuda):
+    """Two steps issued at once on two streams take a ticket buffer each,
+    and each equals the same step run alone, bit for bit."""
+    sizes = [_keys(w) for w in WINDOWS]
+    cases = [_attention_layer(8, 16, _keys("T"),
+                              [sizes[(b + s) % len(sizes)] for b in range(16)],
+                              cuda, seed=s) for s in (1, 2)]
+
+    def run(cfg, packed, kc, vc, emb, cur, lo):
+        return k1.decode_step(packed, emb, kc.clone(), vc.clone(), cur, lo,
+                              cur - lo, cfg)
+
+    alone = [run(*case) for case in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    got = []
+    for stream, case in zip(streams, cases):
+        stream.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(stream):
+            got.append(run(*case))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, alone))
+    t0, t1 = (k1.decode_step.tickets(stream, 1) for stream in streams)
+    assert t0.data_ptr() != t1.data_ptr()
+    assert not t0.any() and not t1.any()
 
 
 @pytest.mark.gpu
