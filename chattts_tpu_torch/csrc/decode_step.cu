@@ -36,16 +36,18 @@
 //
 // Quantized weights are (N, K) int8, or (N, K/2) bytes with weight 2j in
 // the low nibble of byte j and 2j + 1 in the high one, beside f32 scales
-// (N, K/group).  The integers widen to f32 exactly; a lane multiplies its
-// run of 8 weights (which never straddles a group: group % 8 == 0) with the
-// bf16 inputs into an f32 partial sum and adds partial * scale[group] to
-// its total, so the scale multiplies a sum, never a weight.
+// (N, K/group).  The integers widen to bf16 in registers, exactly (|v| <=
+// 127), and go through the same tensor-core product as bf16 weights; each
+// warp sums a group's products into an f32 partial (group % 32 == 0, so a
+// 32-value step never straddles two groups) and adds partial * scale[group]
+// to its total where the group or its slice of K ends, so the scale
+// multiplies a sum, never a weight.
 //
 // A row's result depends on that row's inputs only, never on B or on the
-// other rows: every sum runs in an order fixed by the row's own shapes.
-// Above 32 rows the gemv runs over row halves (grid.y): a block keeps at
-// most 32 bf16 input rows in shared memory (196 KB at K 3072), and the
-// weights are read once per half, the second time mostly from L2.
+// other rows: every sum runs in an order fixed by K alone.  Above 32 rows
+// the gemv runs over row halves (grid.y): a block keeps at most 32 bf16
+// input rows in shared memory (194 KB at K 3072), and the weights are read
+// once per half, the second time mostly from L2.
 //
 // Bound on an H100: the step streams every weight once,
 // L*(4*D*D + 3*D*I) of them at 2, 1 or 1/2 bytes (377, 189 or 94 MB at
@@ -56,14 +58,25 @@
 // value bytes and one 32-byte sector of head scales on int8 and int4 (the
 // row's pad past the scales is written, never read).  Its arithmetic
 // intensity is ~B flop/byte, far below the ~295 the tensor cores need, so
-// it is bound by bytes.  The design therefore reads each weight byte once
-// per step: `gemv` gives every block a tile of output columns for ALL B
-// rows (for each half of up to 32), with weights stored (N, K) so a warp
-// streams one contiguous row with 16-, 8- or 4-byte loads of 8 weights
-// (bf16, int8, int4) while the bf16 input rows sit in shared memory.  The
-// TPU kernel's sequential layer grid becomes a host loop over layers (six
-// launches a layer, seven on the int4 cache); its slab DMA ring and aligned
-// append windows are TPU mechanics with no counterpart here.
+// it is bound by bytes.  The TPU kernel's sequential layer grid becomes a
+// host loop over layers (six launches a layer, seven on the int4 cache);
+// its slab DMA ring and aligned append windows are TPU mechanics with no
+// counterpart here.
+//
+// The gemv (four launches a layer) reads each weight byte once per row
+// half: block (x, y) owns kGemvTiles tiles of 8 output columns for the up
+// to 32 rows of half y, and first builds those rows' bf16 inputs in shared
+// memory (the prologue: rms norm or silu * up, from the f32 rows in L2).
+// Its kGemvWarps warps split K into contiguous slices of 32-value steps;
+// for each step a lane loads 8 weights of one column with one 16-, 8- or
+// 4-byte load (bf16, int8, int4), kGemvUnroll steps ahead of their
+// products, and two tensor-core mmas (mma.sync m16n8k16, bf16 in, f32
+// sums) multiply them by 16 input rows taken straight from shared memory
+// into registers, no ldmatrix, with one permutation of k on both sides.
+// The warps' partial tiles are added in warp order in shared memory: one
+// block owns a column tile, so there is no cross-block sum and no atomic.
+// The prologue is the likely limiter: every block re-reads its B rows of
+// K (2K for silu) f32 inputs from L2 (PERF.md).
 //
 // Attention is bound by bytes too: a row reads 2 * n * R bytes of keys and
 // values for n visible keys (6.3 MB a layer at 8 rows, 256 keys, bf16: 1.9
@@ -98,8 +111,8 @@
 // (B, H, S), partials (B, H, S, Dh + 1) and tickets (B * H, zero between
 // launches, one buffer to a stream) come from the wrapper, which sizes them
 // from decode_step_attn_chunk().
-// Launch overhead dominates the step; a CUDA graph and a tensor-core gemv
-// are later work.
+// Launch overhead and the gemv's prologue dominate the step; a CUDA graph
+// and a prologue built once a gemv are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libdecode_step.so decode_step.cu
@@ -114,8 +127,13 @@ namespace {
 constexpr int kMaxB = 64;        // most batch rows a step takes
 constexpr int kRowsPerBlock = 32;  // input rows a gemv block keeps
 constexpr int kKvPad = 128;      // pad lanes of a quantized cache row
-constexpr int kGemvWarps = 4;    // warps per gemv block
-constexpr int kColsPerWarp = 2;  // output columns per warp
+// warps of a gemv block, each a contiguous slice of K, and the 8-column
+// tiles the block owns: 8 warps and 2 tiles were the fastest of 4/8 x 1/2
+// on the H100 (PERF.md)
+constexpr int kGemvWarps = 8;
+constexpr int kGemvTiles = 2;
+constexpr int kGemvUnroll = 4;   // 32-value steps a warp loads before their mmas
+constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory a block may opt in to
 constexpr int kAttnThreads = 128;
 constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kMaxDh = 128;      // head width the attention pair takes
@@ -169,26 +187,79 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-// 8 weights at k0..k0+7 of a row, widened to f32 (exact for every tier).
-// Row starts and k0 are multiples of 8 values, so every load is aligned.
+// The raw bytes of a lane's 8 weights at k0..k0+7 of a row: 16 (bf16), 8
+// (int8, in .x and .y) or 4 (int4 nibbles, in .x).  Row starts and k0 are
+// multiples of 8 values, so every load is aligned.
 template <int WT>
-__device__ __forceinline__ void load_weights8(const void* row, int k0, float* f) {
-  if (WT == W_BF16) {
-    unpack8(__ldg(reinterpret_cast<const uint4*>(
-                static_cast<const __nv_bfloat16*>(row) + k0)), f);
-  } else if (WT == W_INT8) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-        static_cast<const int8_t*>(row) + k0));
-    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+__device__ __forceinline__ uint4 load_weights8(const char* row, int k0) {
+  if (WT == W_BF16)
+    return __ldg(reinterpret_cast<const uint4*>(row) + k0 / 8);
+  if (WT == W_INT8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(row) + k0 / 8);
+    return make_uint4(v.x, v.y, 0u, 0u);
+  }
+  return make_uint4(__ldg(reinterpret_cast<const uint32_t*>(row) + k0 / 8),
+                    0u, 0u, 0u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The 8 weights as bf16 pairs (value 2i in the low half of word i).  The
+// integers widen exactly: |v| <= 127 fits bf16's 8-bit significand.
+template <int WT>
+__device__ __forceinline__ uint4 widen_weights8(const uint4& raw) {
+  if (WT == W_BF16) return raw;
+  float f[8];
+  if (WT == W_INT8) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = (float)b[i];
+    for (int i = 0; i < 8; ++i) {  // byte i to the top, arithmetic shift down
+      const uint32_t w = i < 4 ? raw.x : raw.y;
+      f[i] = (float)((int32_t)(w << (24 - 8 * (i & 3))) >> 24);
+    }
   } else {
-    const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(
-        static_cast<const int8_t*>(row) + k0 / 2));
 #pragma unroll
     for (int i = 0; i < 8; ++i)  // nibble i, sign-extended: (w << 28) >> 28
-      f[i] = (float)((int32_t)(v << (28 - 4 * i)) >> 28);
+      f[i] = (float)((int32_t)(raw.x << (28 - 4 * i)) >> 28);
   }
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row-major) b (16 x 8 bf16, "col"):
+// one tensor-core product, the fragments in registers.  Lane 4g + t holds
+// a0..a3 = rows g, g + 8, g, g + 8 at k pairs 2t, 2t, 2t + 8, 2t + 8;
+// b0, b1 = column g at k pairs 2t, 2t + 8; c0..c3 = rows g, g, g + 8, g + 8
+// at columns 2t, 2t + 1, 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16_16x8x16(float* c, uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint32_t b0,
+                                                 uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// bf16 values between two input rows in a gemv block's shared memory: at
+// least K, and 64 bytes past a multiple of 128, so the 8 lanes of one
+// 16-byte load phase (rows g, g + 1 at k pairs 8t .. 8t + 7) hit 8 distinct
+// 16-byte bank groups.
+__host__ __device__ __forceinline__ int gemv_row_stride(int K) {
+  return K + (96 - K % 64) % 64;
+}
+
+// Bytes of a gemv block's dynamic shared memory, in this order: the warps'
+// partial tiles (f32), the block's weight scales (f32, quantized tiers),
+// the bf16 input rows.
+template <int BR>
+__host__ __device__ __forceinline__ size_t gemv_red_bytes() {
+  return (size_t)kGemvWarps * kGemvTiles * BR * 8 * sizeof(float);
+}
+__host__ __device__ __forceinline__ size_t gemv_scale_bytes(int G) {
+  return ((size_t)kGemvTiles * 8 * G * sizeof(float) + 15) / 16 * 16;
 }
 
 // out[b, n] (=|+=) sum_k bf16(in'[b, k]) * W[n, k]   for b < B, n < N
@@ -198,10 +269,24 @@ __device__ __forceinline__ void load_weights8(const void* row, int k0, float* f)
 //   IN_SILU: silu(x[b, k]) * x[b, K + k]      (x holds [gate | up])
 // W is (N, K) row-major of tier WT: bf16, int8, or int4 nibbles (K/2 bytes a
 // row); quantized tiers carry wscale (N, K/group) f32 and W[n, k] stands for
-// the integer times wscale[n, k / group].  K % 8 == 0 and group % 8 == 0; x
-// rows are x_stride floats apart.  Block (., y) serves rows
-// [32 y, 32 y + 32).  BR (16 or 32) is the number of row accumulators a warp
-// carries; a row's sum does not depend on it, on B or on y.
+// the integer times wscale[n, k / group].  K % 8 == 0, and group % 32 == 0
+// with K % group == 0; x rows are x_stride floats apart.  Block (x, y)
+// serves output columns [8 T x, 8 T (x + 1)), T = kGemvTiles, of rows
+// [32 y, 32 y + 32); BR (16 or 32) is the rows it multiplies, one m-tile of
+// 16 or two.  The products run on the tensor cores (mma.sync m16n8k16,
+// bf16 in, f32 sums): warp w takes the 32-value steps [w S / NW,
+// (w + 1) S / NW) of K's S steps, lane 4g + t loading the 8 weights
+// W[n0 + g, k + 8t .. k + 8t + 7] of a step at k with one 16-byte (int8: 8,
+// int4: 4) load and the input rows g and g + 8 at the same 8 values from
+// shared memory; values 8t + {0,1,2,3} feed the first mma of the step as
+// its k pairs 2t and 2t + 8, values 8t + {4,5,6,7} the second.  A and B
+// take the same permutation of k, so every output sums the step's 32
+// products.  Rows >= B and values past K read zeros; columns past N
+// recompute column N - 1 and store nothing.  On a quantized tier each warp
+// sums a scale group into `part` and adds part * scale to its total where
+// the group or its slice ends.  The warps' partial tiles are added in warp
+// order in shared memory, so a row's sum runs in an order fixed by K alone:
+// it does not depend on B, on BR, on y or on the other rows.
 template <int MODE, bool ADD, int BR, int WT>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 gemv_kernel(const float* __restrict__ x, int x_stride,
@@ -209,8 +294,14 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
             const float* __restrict__ wscale, int group,
             float* __restrict__ out, int out_stride, int B, int K, int N,
             float eps) {
+  constexpr int MT = BR / 16;  // m-tiles of 16 rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [B][K]
+  const int G = WT == W_BF16 ? 0 : K / group;  // scale groups of a row
+  float* red = reinterpret_cast<float*>(smem_raw);  // [warp][tile][m][4][32]
+  float* scs = reinterpret_cast<float*>(smem_raw + gemv_red_bytes<BR>());
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + gemv_red_bytes<BR>() + gemv_scale_bytes(G));  // [B][stride]
+  const int stride = gemv_row_stride(K);
   __shared__ float rscale[kRowsPerBlock];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -218,6 +309,12 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
   x += (size_t)row0 * x_stride;
   out += (size_t)row0 * out_stride;
   B = min(B - row0, kRowsPerBlock);
+  const int col0 = blockIdx.x * kGemvTiles * 8;
+
+  // the block's weight scales, [tile column][group]
+  if (WT != W_BF16)
+    for (int i = tid; i < kGemvTiles * 8 * G; i += blockDim.x)
+      scs[i] = __ldg(wscale + (size_t)min(col0 + i / G, N - 1) * G + i % G);
 
   // Prologue: every block builds the bf16 input rows in shared memory from
   // the f32 rows (L2-resident, a few KB).  Loads are 16 bytes wide and the
@@ -263,73 +360,114 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
     __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
     for (int j = 0; j < 4; ++j) p2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    *reinterpret_cast<uint4*>(xs + (size_t)b * K + k) = packed;
+    *reinterpret_cast<uint4*>(xs + (size_t)b * stride + k) = packed;
   }
   __syncthreads();
 
-  const int n0 = (blockIdx.x * kGemvWarps + warp) * kColsPerWarp;
-  if (n0 >= N) return;
-  float acc[kColsPerWarp][BR];
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-    for (int b = 0; b < BR; ++b) acc[c][b] = 0.f;
-
+  const int g = lane >> 2, t = lane & 3;
   // bytes of a weight row: 2, 1 or 1/2 a value
   const size_t row_bytes = WT == W_BF16 ? (size_t)K * 2
                            : WT == W_INT8 ? (size_t)K : (size_t)K / 2;
-  const int G = WT == W_BF16 ? 0 : K / group;  // scale groups of a row
-  const char* wrow[kColsPerWarp];
-  const float* srow[kColsPerWarp];
+  const char* wrow[kGemvTiles];
 #pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c) {
-    const int n = min(n0 + c, N - 1);  // a ragged last column recomputes N-1
-    wrow[c] = static_cast<const char*>(W) + (size_t)n * row_bytes;
-    srow[c] = WT == W_BF16 ? nullptr : wscale + (size_t)n * G;
-  }
-#pragma unroll 2
-  for (int k0 = lane * 8; k0 < K; k0 += 256) {
-    float wf[kColsPerWarp][8];
-    float sc[kColsPerWarp];
+  for (int j = 0; j < kGemvTiles; ++j)  // a ragged last column recomputes N-1
+    wrow[j] = static_cast<const char*>(W) +
+              (size_t)min(col0 + 8 * j + g, N - 1) * row_bytes;
+  const int steps = (K + 31) / 32;
+  const int s_end = (warp + 1) * steps / kGemvWarps;
+  float acc[kGemvTiles][MT][4], part[kGemvTiles][MT][4];
 #pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
-      load_weights8<WT>(wrow[c], k0, wf[c]);
-      if (WT != W_BF16) sc[c] = __ldg(srow[c] + k0 / group);
+  for (int j = 0; j < kGemvTiles; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][m][i] = part[j][m][i] = 0.f;
+
+  for (int s = warp * steps / kGemvWarps; s < s_end; s += kGemvUnroll) {
+    // the weights of kGemvUnroll steps first, so their loads are in flight
+    uint4 raw[kGemvUnroll][kGemvTiles];
+#pragma unroll
+    for (int u = 0; u < kGemvUnroll; ++u) {
+      const int k0 = (s + u) * 32 + 8 * t;
+#pragma unroll
+      for (int j = 0; j < kGemvTiles; ++j)
+        raw[u][j] = s + u < s_end && k0 < K ? load_weights8<WT>(wrow[j], k0)
+                                            : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
-    for (int b = 0; b < BR; ++b) {
-      if (b < B) {
-        float xf[8];
-        unpack8(*reinterpret_cast<const uint4*>(xs + (size_t)b * K + k0), xf);
+    for (int u = 0; u < kGemvUnroll; ++u) {
+      if (s + u >= s_end) break;  // uniform over the warp
+      const int k0 = (s + u) * 32 + 8 * t;
+      uint4 xa[MT], xb[MT];  // input rows g and g + 8 of each m-tile
 #pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c) {
-          if (WT == W_BF16) {
+      for (int m = 0; m < MT; ++m) {
+        const int r = 16 * m + g;
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        xa[m] = k0 < K && r < B
+                    ? *reinterpret_cast<const uint4*>(xs + (size_t)r * stride + k0)
+                    : zero;
+        xb[m] = k0 < K && r + 8 < B
+                    ? *reinterpret_cast<const uint4*>(xs + (size_t)(r + 8) * stride + k0)
+                    : zero;
+      }
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-              acc[c][b] = fmaf(xf[j], wf[c][j], acc[c][b]);
-          } else {  // the run's f32 sum, then its group's scale
-            float part = 0.f;
+      for (int j = 0; j < kGemvTiles; ++j) {
+        const uint4 w = widen_weights8<WT>(raw[u][j]);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) part = fmaf(xf[j], wf[c][j], part);
-            acc[c][b] = fmaf(part, sc[c], acc[c][b]);
+        for (int m = 0; m < MT; ++m) {
+          // each mma sums its 16 products from zero, and the result joins
+          // the running f32 sum with a rounded add: the tensor cores'
+          // truncation then reaches 16 products, not the whole slice
+          float c1[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16_16x8x16(c1, xa[m].x, xb[m].x, xa[m].y, xb[m].y, w.x, w.y);
+          mma_bf16_16x8x16(c2, xa[m].z, xb[m].z, xa[m].w, xb[m].w, w.z, w.w);
+          float* c = WT == W_BF16 ? acc[j][m] : part[j][m];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[i] = (c[i] + c1[i]) + c2[i];
+        }
+      }
+      // a quantized group's sum times its scale, where the group or the
+      // warp's slice ends (group % 32 == 0: a step never straddles groups)
+      if (WT != W_BF16 && (s + u + 1 == s_end || (s + u + 1) * 32 % group == 0)) {
+        const int grp = (s + u) * 32 / group;
+#pragma unroll
+        for (int j = 0; j < kGemvTiles; ++j) {
+          const float s_lo = scs[(8 * j + 2 * t) * G + grp];
+          const float s_hi = scs[(8 * j + 2 * t + 1) * G + grp];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[j][m][i] += part[j][m][i] * (i & 1 ? s_hi : s_lo);
+              part[j][m][i] = 0.f;
+            }
           }
         }
       }
     }
   }
+
+  // the warps' partial tiles, added in warp order
 #pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c) {
-    const int n = n0 + c;
+  for (int j = 0; j < kGemvTiles; ++j)
 #pragma unroll
-    for (int b = 0; b < BR; ++b) {
-      if (b < B) {
-        const float s = warp_sum(acc[c][b]);
-        if (lane == 0 && n < N) {
-          float* dst = out + (size_t)b * out_stride + n;
-          if (ADD) *dst += s; else *dst = s;
-        }
-      }
-    }
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[(((warp * kGemvTiles + j) * MT + m) * 4 + i) * 32 + lane] = acc[j][m][i];
+  __syncthreads();
+  for (int o = tid; o < kGemvTiles * BR * 8; o += blockDim.x) {
+    const int j = o / (BR * 8), b = (o / 8) % BR, c = o % 8;
+    const int n = col0 + 8 * j + c;
+    if (b >= B || n >= N) continue;
+    const int m = b / 16, i = (b % 16 >= 8 ? 2 : 0) + (c & 1);
+    const int src = (j * MT + m) * 4 + i;
+    const int ln = 4 * (b % 8) + c / 2;
+    float sum = 0.f;
+    for (int w = 0; w < kGemvWarps; ++w)
+      sum += red[((w * kGemvTiles * MT * 4) + src) * 32 + ln];
+    float* dst = out + (size_t)b * out_stride + n;
+    if (ADD) *dst += sum; else *dst = sum;
   }
 }
 
@@ -771,8 +909,11 @@ template <int MODE, bool ADD, int BR, int WT>
 cudaError_t launch_gemv_rows(const float* x, int x_stride, const float* lnw,
                              Weights wt, float* out, int out_stride, int B,
                              int K, int N, float eps, cudaStream_t st) {
-  const size_t smem = (size_t)(B < kRowsPerBlock ? B : kRowsPerBlock) * K *
-                      sizeof(__nv_bfloat16);
+  const int G = WT == W_BF16 ? 0 : K / wt.group;
+  const size_t smem = gemv_red_bytes<BR>() + gemv_scale_bytes(G) +
+                      (size_t)(B < kRowsPerBlock ? B : kRowsPerBlock) *
+                          gemv_row_stride(K) * sizeof(__nv_bfloat16);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // the attribute is per device, so it is set before every such launch
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -780,7 +921,7 @@ cudaError_t launch_gemv_rows(const float* x, int x_stride, const float* lnw,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int cols = kGemvWarps * kColsPerWarp;
+  const int cols = kGemvTiles * 8;
   const dim3 grid((N + cols - 1) / cols,
                   (B + kRowsPerBlock - 1) / kRowsPerBlock);
   gemv_kernel<MODE, ADD, BR, WT><<<grid, kGemvWarps * 32, smem, st>>>(
@@ -789,6 +930,7 @@ cudaError_t launch_gemv_rows(const float* x, int x_stride, const float* lnw,
   return cudaGetLastError();
 }
 
+// BR: one m-tile of 16 rows up to 16 rows, two above
 template <int MODE, bool ADD, int WT>
 cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
                         Weights wt, float* out, int out_stride, int B, int K,
@@ -798,6 +940,27 @@ cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
                                                out_stride, B, K, N, eps, st);
   return launch_gemv_rows<MODE, ADD, 32, WT>(x, x_stride, lnw, wt, out,
                                              out_stride, B, K, N, eps, st);
+}
+
+// launch_gemv with the prologue, the add and the weight tier given at run
+// time (the one-gemv entry)
+template <int WT>
+cudaError_t launch_gemv_any(int mode, bool add, const float* x, int x_stride,
+                            const float* lnw, Weights wt, float* out,
+                            int out_stride, int B, int K, int N, float eps,
+                            cudaStream_t st) {
+#define GEMV_CASE(M, A)                                                      \
+  if (mode == M && add == A)                                                 \
+    return launch_gemv<M, A, WT>(x, x_stride, lnw, wt, out, out_stride, B, K, \
+                                 N, eps, st);
+  GEMV_CASE(IN_NONE, false)
+  GEMV_CASE(IN_NONE, true)
+  GEMV_CASE(IN_RMS, false)
+  GEMV_CASE(IN_RMS, true)
+  GEMV_CASE(IN_SILU, false)
+  GEMV_CASE(IN_SILU, true)
+#undef GEMV_CASE
+  return cudaErrorInvalidValue;
 }
 
 struct StepArgs {
@@ -933,7 +1096,7 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
       (kv_bits == KV_INT4 && HD % 256) ||
       (weight_bits != W_BF16 && weight_bits != W_INT8 &&
        weight_bits != W_INT4) ||
-      (quant && (group < 8 || group % 8 || D % group || HD % group ||
+      (quant && (group < 32 || group % 32 || D % group || HD % group ||
                  I % group || !sqkv || !so || !sgu || !sd)))
     return (int)cudaErrorInvalidValue;
   StepArgs a;
@@ -967,6 +1130,40 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
   if (weight_bits == W_INT8) return (int)run_layers<W_INT8>(a);
   if (weight_bits == W_INT4) return (int)run_layers<W_INT4>(a);
   return (int)run_layers<W_BF16>(a);
+}
+
+// One gemv of the step's kind, on its own: out (B, N) (=|+=) in' W^T with
+// the prologue `mode` (0 none, 1 rms with lnw (K,) and eps, 2 silu of
+// x = [gate | up]) on x (B, K) f32 (B, 2K for silu) rows x_stride floats
+// apart, W (N, K) of `weight_bits` (0 bf16, 8 int8, 4 int4 nibbles) with
+// scale (N, K / group) f32 on a quantized tier, out rows out_stride floats
+// apart.  Device pointers; 1 <= B <= 64, K % 8 == 0, group % 32 == 0 and
+// K % group == 0.  Returns the first CUDA error (0 on success).
+int decode_step_gemv(const void* x, int x_stride, const void* lnw,
+                     const void* w, const void* scale, int group, void* out,
+                     int out_stride, int B, int K, int N, int mode, int add,
+                     int weight_bits, float eps, void* stream) {
+  const bool quant = weight_bits != W_BF16;
+  if (B < 1 || B > kMaxB || K < 8 || K % 8 || N < 1 || mode < IN_NONE ||
+      mode > IN_SILU || (mode == IN_RMS && !lnw) || x_stride % 4 ||
+      x_stride < (mode == IN_SILU ? 2 * K : K) || out_stride < N ||
+      (weight_bits != W_BF16 && weight_bits != W_INT8 &&
+       weight_bits != W_INT4) ||
+      (quant && (group < 32 || group % 32 || K % group || !scale)))
+    return (int)cudaErrorInvalidValue;
+  const Weights wt{w, static_cast<const float*>(scale), quant ? group : 1};
+  const float* xf = static_cast<const float*>(x);
+  const float* lf = static_cast<const float*>(lnw);
+  float* of = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (weight_bits == W_INT8)
+    return (int)launch_gemv_any<W_INT8>(mode, add, xf, x_stride, lf, wt, of,
+                                        out_stride, B, K, N, eps, st);
+  if (weight_bits == W_INT4)
+    return (int)launch_gemv_any<W_INT4>(mode, add, xf, x_stride, lf, wt, of,
+                                        out_stride, B, K, N, eps, st);
+  return (int)launch_gemv_any<W_BF16>(mode, add, xf, x_stride, lf, wt, of,
+                                      out_stride, B, K, N, eps, st);
 }
 
 // Keys of a row's window one attention block owns, as built.

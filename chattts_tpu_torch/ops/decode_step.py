@@ -36,6 +36,10 @@ combinations are three gemv instantiations times three attention ones.
   in ``decode_step.variant_launches`` (``decode_step.launches`` is their
   sum); a CPU tensor takes the plain version.  There is no fallback from
   one to the other.
+* :data:`gemv` launches one of the step's gemvs on its own (the kernel's
+  entry for tests and timing, counted in ``decode_step.gemv_launches``);
+  :func:`gemv_plain` is its plain version and :func:`gemv_tolerance` the
+  error bound the kernel is held to.  The step never calls them.
 
 The caches are updated in place (the TPU kernel aliases them too): only row
 ``cur_b`` of row b of every layer is written.  The kv8 and kv4 row formats
@@ -236,6 +240,112 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(var + eps) * w[None, :]
 
 
+# the gemv's prologues (``mode`` of :func:`gemv`): the input as given, its
+# rms norm times ``lnw``, or silu(gate) * up of x = [gate | up]
+GEMV_NONE, GEMV_RMS, GEMV_SILU = 0, 1, 2
+
+
+def _gemv_input(x: torch.Tensor, lnw, mode: int, eps: float) -> torch.Tensor:
+    """The f32 input rows the gemv multiplies, before their bf16 rounding."""
+    if mode == GEMV_RMS:
+        return _rms(x, lnw, eps)
+    if mode == GEMV_SILU:
+        g, u = x.chunk(2, dim=-1)
+        return g * torch.sigmoid(g) * u
+    return x
+
+
+def _gemv_geometry(x: torch.Tensor, lnw, w: torch.Tensor, scale, group: int,
+                   out: torch.Tensor, mode: int):
+    """(K, weight_bits) of a gemv's arguments; raises ValueError on what the
+    kernel does not take."""
+    if mode not in (GEMV_NONE, GEMV_RMS, GEMV_SILU):
+        raise ValueError(f"mode must be 0 (none), 1 (rms) or 2 (silu), not "
+                         f"{mode}")
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise ValueError("x must be a (B, K) float32 tensor, (B, 2K) for silu")
+    B = x.shape[0]
+    K = x.shape[1] // 2 if mode == GEMV_SILU else x.shape[1]
+    if not 1 <= B <= MAX_ROWS or K < 8 or K % 8 or (
+            mode == GEMV_SILU and x.shape[1] != 2 * K):
+        raise ValueError(f"the gemv takes 1 to {MAX_ROWS} rows and K a "
+                         f"multiple of 8, not x {tuple(x.shape)}")
+    if w.ndim != 2 or w.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError("w must be an (N, K) bf16, (N, K) int8 or (N, K/2) "
+                         "int4-nibble tensor")
+    N = w.shape[0]
+    if w.dtype == torch.bfloat16:
+        bits = 0
+    else:
+        bits = {K: 8, K // 2: 4}.get(w.shape[1])
+    if bits is None or (bits == 0 and w.shape[1] != K):
+        raise ValueError(f"w {tuple(w.shape)} {w.dtype} does not match K {K}")
+    if bits:
+        if group < 32 or group % 32 or K % group:
+            raise ValueError(f"a scale group of {group} rows: the gemv needs "
+                             f"group % 32 == 0 and K % group == 0 (K {K})")
+        if (scale is None or scale.dtype != torch.float32
+                or tuple(scale.shape) != (N, K // group)):
+            raise ValueError(f"scale must be ({N}, {K // group}) float32")
+    if mode == GEMV_RMS and (lnw is None or lnw.dtype != torch.float32
+                             or tuple(lnw.shape) != (K,)):
+        raise ValueError(f"lnw must be ({K},) float32 for the rms prologue")
+    if tuple(out.shape) != (B, N) or out.dtype != torch.float32:
+        raise ValueError(f"out must be ({B}, {N}) float32")
+    return K, bits
+
+
+def gemv_plain(x: torch.Tensor, lnw, w: torch.Tensor, scale, group: int,
+               out: torch.Tensor, mode: int, add: bool,
+               eps: float = 1e-6) -> torch.Tensor:
+    """The gemv's plain version: the prologue, then :func:`_mm`.  Returns
+    ``out + y`` (``add``) or ``y``, y = bf16(in') W^T (B, N) f32; ``out``
+    is not written.  Arguments as :func:`DecodeStep.gemv` takes them."""
+    _gemv_geometry(x, lnw, w, scale, group, out, mode)
+    y = _mm(_gemv_input(x, lnw, mode, eps), w,
+            scale if w.dtype == torch.int8 else None)
+    return out + y if add else y
+
+
+def gemv_tolerance(x: torch.Tensor, lnw, w: torch.Tensor, scale, group: int,
+                   out: torch.Tensor, mode: int, add: bool,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """The largest |kernel - plain| a gemv may show, element by element
+    (B, N), from f32 summation over K.
+
+    With a_k the bf16 input and v_k the weight times its group's scale, the
+    plain version's f32 sums (round to nearest) are off by at most
+    K u S, S = sum_k |a_k v_k|, u = 2^-24.  The kernel's tensor cores sum
+    each mma's 16 exact products from zero, aligned to the largest and
+    truncated, at most 2u of their absolute sum for each of 16 additions
+    (32 u S in all); the mma results join the running sums with K / 16
+    rounded additions, the scale products, the groups' and the warps' sums
+    with fewer than K / group + 16: at most (K / 8 + 64) u S.  Allowing
+    twice the truncation everywhere, the two differ by at most
+    (4 K + 64) u S.  On the rms and silu prologues the two sides' f32 inputs
+    may differ by a relative delta (the order of the K squares' sum, halved
+    by the square root, rsqrtf's and expf's 2 ulps: delta = max(2^-14,
+    2 K u)), so an a_k within delta of a bf16 rounding tie may round to its
+    other neighbour: such a_k add |a_k' - a_k| |v_k|.  With ``add`` the sum
+    into ``out`` adds 2^-23 (|out| + |y|)."""
+    K, bits = _gemv_geometry(x, lnw, w, scale, group, out, mode)
+    u = 2.0 ** -24
+    a = _gemv_input(x, lnw, mode, eps).double()
+    v = (w.double() if bits == 0 else unpack_matrix(w, K).double()
+         * scale.double().repeat_interleave(group, dim=1))
+    bound = (4 * K + 64) * u * (_bf(a.float()).double().abs() @ v.abs().T)
+    if mode != GEMV_NONE:
+        delta = max(2.0 ** -14, 2 * K * u)
+        lo = _bf((a * (1 - delta)).float()).double()
+        hi = _bf((a * (1 + delta)).float()).double()
+        bound = bound + (hi - lo).abs() @ v.abs().T
+    if add:
+        y = _mm(_gemv_input(x, lnw, mode, eps), w,
+                scale if bits else None).double()
+        bound = bound + 2 * u * (out.double().abs() + y.abs())
+    return bound
+
+
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, H: int
           ) -> torch.Tensor:
     """x (B, HD) f32; rotate_half reads bf16-rounded values (the TPU kernel
@@ -384,6 +494,7 @@ class DecodeStep:
         library of their own, to compare attention chunk sizes and grids on
         the card."""
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
+        self.gemv_launches = 0  # launches of the one-gemv entry
         self.library = CudaLibrary("decode_step.cu", defines)
         self._chunk = None
         self._tickets: Dict[tuple, torch.Tensor] = {}
@@ -404,6 +515,49 @@ class DecodeStep:
         fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         return fn
+
+    def gemv(self, x: torch.Tensor, lnw, w: torch.Tensor, scale,
+             group: int, out: torch.Tensor, mode: int, add: bool,
+             eps: float = 1e-6) -> torch.Tensor:
+        """One of the step's gemvs on its own: ``out`` (B, N) f32 becomes
+        (``add``: ``out +``) bf16(in') W^T, in' the prologue ``mode``
+        (:data:`GEMV_NONE`, :data:`GEMV_RMS` with ``lnw`` (K,) and ``eps``,
+        :data:`GEMV_SILU` of x = [gate | up]) of x (B, K) f32 ((B, 2K) for
+        silu), W (N, K) bf16, (N, K) int8 or (N, K/2) int4 nibbles with
+        ``scale`` (N, K / group) f32.  CUDA tensors launch ``gemv_kernel``
+        (counted in ``gemv_launches``), CPU tensors take
+        :func:`gemv_plain`; returns ``out``.  The step does not call this:
+        it is the kernel's entry for tests and timing."""
+        K, bits = _gemv_geometry(x, lnw, w, scale, group, out, mode)
+        tensors = [t for t in (x, lnw, w, scale, out) if t is not None]
+        if any(t.device != x.device for t in tensors):
+            raise ValueError("the gemv's tensors must be on one device")
+        if x.device.type == "cpu":
+            out.copy_(gemv_plain(x, lnw, w, scale, group, out, mode, add,
+                                 eps))
+            return out
+        if x.device.type != "cuda":
+            raise ValueError(f"the gemv runs on cuda or cpu, not {x.device}")
+        if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in tensors):
+            raise ValueError("the gemv's tensors must be contiguous and "
+                             "16-byte aligned")
+        fn = self.library.get().decode_step_gemv
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(x.device)
+        err = fn(x.data_ptr(), x.shape[1],
+                 None if lnw is None else lnw.data_ptr(), w.data_ptr(),
+                 scale.data_ptr() if bits else None, group if bits else 1,
+                 out.data_ptr(), out.shape[1], x.shape[0], K, w.shape[0],
+                 mode, int(bool(add)), bits, eps, stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"decode_step_gemv failed with CUDA error "
+                               f"{err}")
+        self.gemv_launches += 1
+        return out
 
     @property
     def attn_chunk(self) -> int:
@@ -469,6 +623,9 @@ class DecodeStep:
         if D % 8 or I % 8 or Dh % 16 or 128 % Dh:
             raise ValueError("the decode step needs D, I multiples of 8 and "
                              "Dh a multiple of 16 dividing 128")
+        if wb and (gs % 32 or D % gs or I % gs):
+            raise ValueError(f"the gemv needs scale groups of a multiple of "
+                             f"32 rows dividing D and I, not {gs}")
         variant = variant_of(k_cache, cur, packed, cfg)
         if isinstance(cur, torch.Tensor):
             if cur.ndim > 1 or (cur.ndim == 1 and cur.shape[0] != B):
@@ -513,3 +670,4 @@ class DecodeStep:
 
 
 decode_step = DecodeStep()
+gemv = decode_step.gemv

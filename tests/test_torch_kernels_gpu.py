@@ -18,9 +18,10 @@ differ (deeper layers quantize a residual that drifted within the hidden's
 tolerance), every dequantized value within one quantization step, two where
 the drift moved the head's scale.  An appended kv4 row is held the same way
 on its unpacked values.  With quantized weights both sides multiply the
-same integers by the same scales; the kernel adds each lane's run of 8
-products times the scale where the plain version adds each group's sum
-times the scale, f32 both, so the hidden's tolerance stays 0.05.  A row's
+same integers by the same scales; the kernel adds each warp's share of a
+group's sum (its tensor-core products of the group's steps in its slice of
+K) times the scale where the plain version adds each group's sum times the
+scale, f32 both, so the hidden's tolerance stays 0.05.  A row's
 result must not depend on the batch it ran in, bit for bit, up to 64 rows.
 """
 
@@ -356,12 +357,12 @@ def test_rows_33_to_64_of_the_earlier_variants(cuda, variant):
 
 
 # one layer's attention output, undiluted (MLP off, wo the identity), held
-# to one bf16 ulp (2^-7 of the value) plus 3e-4: q is the gemv's sum, taken
-# in another order than the plain matmul's, so an element of
-# bf16(q * scale) can land one bf16 ulp apart, which moves a score by up to
-# 2^-8 of one of its terms and o by as much of the values' scale (O(1)
-# here; measured up to 1.3e-4 on outputs near zero), beside o's own
-# rounding.  A key dropped at a chunk edge moves o by about |v - o| / n:
+# to one bf16 ulp (2^-7 of the value) plus 3e-4: o's own rounding, and the
+# attention pair's sums in another order than attend_plain's.  Both sides
+# take the q of the kernel's own qkv gemv: a q summed in another order
+# could put an element of bf16(q * scale) one bf16 ulp apart, which moves a
+# score by up to 2^-8 of one of its terms and o by as much of the values'
+# scale.  A key dropped at a chunk edge moves o by about |v - o| / n:
 # test_attention_limit_rejects_a_dropped_edge_key shows the limit sees it.
 ATTN_RTOL, ATTN_ATOL = 2 ** -7, 3e-4
 # keys of a window as (a, b): a C + b, C the attention chunk the library
@@ -400,10 +401,13 @@ def _attention_error(cfg, packed, kc, vc, emb, cur, lo, drop=None):
     _check_rows and _check_quantized_rows hold them, and o against
     ``attend_plain`` on the caches the kernel appended to (so an appended
     quantized value that landed on the other side of a rounding tie is the
-    same on both sides) and on the plain step's roped q, after o's bf16
-    rounding: the largest |difference| / (ATTN_ATOL + ATTN_RTOL |o|), which
-    passes at 1 or less.  ``drop``: a key (its index in the window) that
-    the plain side leaves out, a fault planted on purpose."""
+    same on both sides) and on the q the kernel's own qkv gemv gives (the
+    one-gemv entry runs the step's instantiation on the same rows, so its
+    q is the step's, bit for bit), roped as the plain version ropes it,
+    after o's bf16 rounding: the largest |difference| / (ATTN_ATOL +
+    ATTN_RTOL |o|), which passes at 1 or less.  ``drop``: a key (its index
+    in the window) that the plain side leaves out, a fault planted on
+    purpose."""
     H = cfg.num_attention_heads
     HD = H * cfg.head_dim
     kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
@@ -414,8 +418,9 @@ def _attention_error(cfg, packed, kc, vc, emb, cur, lo, drop=None):
     check(kk, kp, kc, cur, cfg)
     check(vk, vp, vc, cur, cfg)
     cos, sin = k1.rope_rows(cfg, cur - lo)
-    qkv = k1._mm(k1._rms(emb.float(), packed["ln1"][0], cfg.rms_norm_eps),
-                 packed["wqkv"][0])
+    qkv = torch.empty((emb.shape[0], 3 * HD), device=emb.device)
+    k1.gemv(emb.float().contiguous(), packed["ln1"][0], packed["wqkv"][0],
+            None, 0, qkv, k1.GEMV_RMS, False, cfg.rms_norm_eps)
     q = k1._rope(qkv[:, :HD], cos, sin, H)
     t = torch.arange(kc.shape[2], device=emb.device)
     visible = (t[None, :] >= lo[:, None]) & (t[None, :] <= cur[:, None])
