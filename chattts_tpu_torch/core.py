@@ -12,10 +12,16 @@ CUDA, on the int8 KV cache unless ``kv_bits=0`` asks for bf16 or
 ``kv_bits=4`` for int4 rows, with bf16 weights unless ``weight_bits=8`` or
 ``4`` asks for the quantized tiers.
 
+A text that ``split_text`` cuts into several segments, with no ``spk_smp``
+given, takes the reference's auto-clone branch: segment 0 is synthesized
+first, its wav encoded to codes by the DVAE encoder
+(:meth:`Chat.sample_audio_speaker`), and those codes prompt every segment.
+``use_decoder=False`` decodes the sampled codes through the DVAE's GFSQ
+embed and its own decoder stack instead of the hiddens.
+
 Entry points run on CUDA unless ``device="cpu"`` is passed to :meth:`load`
-or :meth:`load_params`.  Streaming, voice cloning and the
-``use_decoder=False`` path are later slices of the port and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+or :meth:`load_params`.  Streaming is a later slice of the port and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -42,8 +48,6 @@ from .norm import Normalizer
 from .ops.decode_step import pack_weights
 from .weights import resolve_device, to_device
 
-_CLONE = "voice clone (ROADMAP.md, Queue 1: Voice clone)"
-
 
 class Chat:
     def __init__(self, logger: logging.Logger = logging.getLogger(__name__),
@@ -69,7 +73,9 @@ class Chat:
 
         Weights are drawn on the CPU from a ``torch.Generator`` seeded with
         ``seed`` and then moved to ``device`` (CUDA by default), so every
-        device gets the same weights.
+        device gets the same weights.  The full DVAE (encoder, GFSQ and its
+        own decoder, for voice clone and ``use_decoder=False``) is drawn
+        after the other parts and shares the decoder's ``coef``.
 
         ``use_engine=True`` routes the refine-text pass and code generation
         through the continuous-batching engine (the reference's
@@ -92,21 +98,27 @@ class Chat:
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         coef_arr = None if coef is None else codecs.decode_coef(coef)
-        self.load_params(
-            gpt=llama_mod.init_params(gen, cfg.gpt),
-            embed=embed_mod.init_params(gen, cfg.gpt),
-            decoder=dvae_mod.init_decoder_params(gen, cfg.decoder, coef_arr),
-            vocos=vocos_mod.init_params(gen, cfg.vocos),
-            device=dev, use_engine=use_engine, weight_bits=weight_bits,
-            kv_bits=kv_bits)
+        gpt = llama_mod.init_params(gen, cfg.gpt)
+        embed = embed_mod.init_params(gen, cfg.gpt)
+        decoder = dvae_mod.init_decoder_params(gen, cfg.decoder, coef_arr)
+        vocos = vocos_mod.init_params(gen, cfg.vocos)
+        dvae = dvae_mod.init_dvae_params(gen, cfg.dvae,
+                                         decoder["coef"].numpy())
+        self.load_params(gpt=gpt, embed=embed, decoder=decoder, vocos=vocos,
+                         dvae=dvae, device=dev, use_engine=use_engine,
+                         weight_bits=weight_bits, kv_bits=kv_bits)
         return True
 
     def load_params(self, gpt: dict, embed: dict, decoder: dict, vocos: dict,
-                    device=None, use_engine: bool = False,
-                    weight_bits: int = 0, kv_bits: int = 8) -> "Chat":
+                    dvae: Optional[dict] = None, device=None,
+                    use_engine: bool = False, weight_bits: int = 0,
+                    kv_bits: int = 8) -> "Chat":
         """Load parameter trees in the JAX package's layouts (numpy arrays
         or tensors, e.g. bridged with ``weights.from_numpy``);
-        ``weight_bits`` and ``kv_bits`` as in :meth:`load`."""
+        ``weight_bits`` and ``kv_bits`` as in :meth:`load`.  ``dvae``, the
+        full DVAE, is needed only by voice clone (``sample_audio_speaker``
+        and the auto-clone branch of a split text) and ``use_decoder=False``;
+        those raise without it."""
         cfg = self.config
         self.use_engine = use_engine
         self.weight_bits = weight_bits
@@ -118,6 +130,8 @@ class Chat:
         self.embed_params = to_device(embed, self.device)
         self.decoder_params = to_device(decoder, self.device)
         self.vocos_params = to_device(vocos, self.device)
+        self.dvae_params = (None if dvae is None
+                            else to_device(dvae, self.device))
         self.tokenizer = Tokenizer(None, vocab_size=cfg.gpt.num_text_tokens)
         self.speaker = Speaker(cfg.gpt.hidden_size, load_spk_stat_string())
         self.coef = dvae_mod.coef_string(self.decoder_params)
@@ -157,7 +171,20 @@ class Chat:
         return self.speaker.sample_random()
 
     def sample_audio_speaker(self, wav: np.ndarray) -> str:
-        raise NotImplementedError(f"sample_audio_speaker is part of {_CLONE}")
+        """Zero-shot clone: waveform -> ``spk_smp`` code string (the DVAE
+        encoder's (num_vq, T) codes)."""
+        ind = dvae_mod.encode_audio(
+            self._dvae("voice clone"),
+            torch.as_tensor(np.asarray(wav, np.float32).reshape(1, -1),
+                            device=self.device),
+            self.config.dvae, self.config.vocos.mel)
+        return Speaker.encode_prompt(ind[0].T.cpu().numpy())
+
+    def _dvae(self, what: str) -> dict:
+        if self.dvae_params is None:
+            raise ValueError(f"{what} needs the full DVAE: pass dvae= to "
+                             "load_params")
+        return self.dvae_params
 
     # ------------------------------------------------------------------
     # Inference params (API parity with the reference)
@@ -211,11 +238,7 @@ class Chat:
         if stream:
             raise NotImplementedError(
                 "streaming is a later slice of the port (ROADMAP.md, "
-                "Queue 1: Streaming)")
-        if not use_decoder:
-            raise NotImplementedError(
-                "use_decoder=False decodes codes through the DVAE's GFSQ, "
-                f"part of {_CLONE}")
+                "Queue 1 item 4: Streaming)")
         params_refine_text = params_refine_text or Chat.RefineTextParams()
         params_infer_code = params_infer_code or Chat.InferCodeParams()
         self.context.set(False)
@@ -232,7 +255,7 @@ class Chat:
             return []
 
         res_gen = self._infer(
-            text, lang, skip_refine_text, refine_text_only,
+            text, lang, skip_refine_text, refine_text_only, use_decoder,
             do_text_normalization, do_homophone_replacement, split_text,
             max_split_batch, params_refine_text, params_infer_code)
         if refine_text_only:
@@ -248,8 +271,9 @@ class Chat:
         return stripped
 
     def _infer(self, text, lang, skip_refine_text, refine_text_only,
-               do_text_normalization, do_homophone_replacement, split_text,
-               max_split_batch, params_refine_text, params_infer_code):
+               use_decoder, do_text_normalization, do_homophone_replacement,
+               split_text, max_split_batch, params_refine_text,
+               params_infer_code):
         text = [self.normalizer(t, do_text_normalization,
                                 do_homophone_replacement, lang)
                 for t in text]
@@ -263,23 +287,30 @@ class Chat:
                 yield "\n".join(text) if split_text else text
                 return
         if split_text and len(text) > 1 and params_infer_code.spk_smp is None:
-            # the reference synthesizes segment 0 and clones its voice for
-            # the rest (chattts_tpu/core.py:421-427)
-            raise NotImplementedError(
-                f"split text with several segments takes the auto-clone "
-                f"branch, part of {_CLONE}; pass split_text=False or spk_smp")
+            # auto voice clone: synthesize segment 0 once and prompt every
+            # segment with its codes (the caller's params keep them, as in
+            # the reference)
+            self._dvae("the auto-clone branch of a split text")
+            refer_text = text[0]
+            wavs = self._generate_wavs([refer_text], use_decoder,
+                                       params_infer_code)
+            if len(wavs) and wavs[0].size:
+                params_infer_code.spk_smp = self.sample_audio_speaker(wavs[0])
+                params_infer_code.txt_smp = refer_text
         if split_text:
             batches = [text[i:i + max_split_batch]
                        for i in range(0, len(text), max_split_batch)]
         else:
             batches = [text]
         for batch in batches:
-            yield self._generate_wavs(batch, params_infer_code)
+            yield self._generate_wavs(batch, use_decoder, params_infer_code)
 
-    def _generate_wavs(self, batch: List[str],
+    def _generate_wavs(self, batch: List[str], use_decoder: bool,
                        params: "Chat.InferCodeParams") -> np.ndarray:
-        result = next(self._infer_code(batch, params))
-        wavs = self._decode_to_wavs(result)
+        if not use_decoder:
+            self._dvae("use_decoder=False")
+        result = next(self._infer_code(batch, params, use_decoder))
+        wavs = self._decode_to_wavs(result, use_decoder)
         result.destroy()
         return wavs
 
@@ -290,23 +321,49 @@ class Chat:
         Zeroes each row's tail before the conv stacks (zero features are not
         inert through norm and conv) and again on the waveform."""
         cfg = self.config
-        spc = 2 * cfg.vocos.hop_length  # samples per code step
         tmask = torch.arange(hid.shape[1], device=hid.device)[None, :] < end[:, None]
         mel = dvae_mod.decode_from_hidden(self.decoder_params,
                                           hid * tmask[..., None], cfg.decoder)
         wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
-        smask = (torch.arange(wav.shape[1], device=wav.device)[None, :]
-                 < (end * spc)[:, None])
-        return wav * smask
+        return self._zero_tail(wav, end)
 
-    def _decode_to_wavs(self, result: GenerationOutputs) -> np.ndarray:
-        hid = result.hiddens_dev  # (B, n_max, D)
-        B, n_max = hid.shape[0], hid.shape[1]
+    def _zero_tail(self, wav: torch.Tensor, end: torch.Tensor
+                   ) -> torch.Tensor:
+        """wav (B, N) with each row zeroed past its ``end`` (B,) code
+        steps."""
+        spc = 2 * self.config.vocos.hop_length  # samples per code step
+        t = torch.arange(wav.shape[1], device=wav.device)
+        return wav * (t[None, :] < (end * spc)[:, None])
+
+    def _decode_to_wavs(self, result: GenerationOutputs, use_decoder: bool
+                        ) -> np.ndarray:
+        cfg = self.config
+        bucket = cfg.runtime.decode_bucket // 4 or 1
+        if use_decoder:
+            hid = result.hiddens_dev  # (B, n_max, D)
+            B, n_max = hid.shape[0], hid.shape[1]
+            if n_max == 0:
+                return np.zeros((B, 0), np.float32)
+            hid = torch.nn.functional.pad(
+                hid, (0, 0, 0, _round_up(n_max, bucket) - n_max))
+            return self._device_decode(hid, result.end_dev).cpu().numpy()
+        # codes -> GFSQ embed -> the DVAE's decoder -> Vocos; each row's
+        # bucket-padding tail is zeroed on the waveform (zero codes are not
+        # silence)
+        items = result.ids
+        n_max = max((x.shape[0] for x in items), default=0)
         if n_max == 0:
-            return np.zeros((B, 0), np.float32)
-        Tpad = _round_up(n_max, self.config.runtime.decode_bucket // 4 or 1)
-        hid = torch.nn.functional.pad(hid, (0, 0, 0, Tpad - n_max))
-        return self._device_decode(hid, result.end_dev).cpu().numpy()
+            return np.zeros((len(items), 0), np.float32)
+        codes = np.zeros((len(items), _round_up(n_max, bucket),
+                          cfg.gpt.num_vq), np.int32)
+        for i, ids in enumerate(items):
+            codes[i, :ids.shape[0]] = ids
+        mel = dvae_mod.decode_from_indices(
+            self.dvae_params, torch.from_numpy(codes).to(self.device),
+            cfg.dvae)
+        wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
+        ends = torch.as_tensor([x.shape[0] for x in items], device=wav.device)
+        return self._zero_tail(wav, ends).cpu().numpy()
 
     # -- generation passes ---------------------------------------------
 
@@ -495,7 +552,8 @@ class Chat:
                                context=self.context)
         yield outputs_to_generation(outs)
 
-    def _infer_code(self, text: List[str], params: "Chat.InferCodeParams"):
+    def _infer_code(self, text: List[str], params: "Chat.InferCodeParams",
+                    use_decoder: bool = True):
         cfg = self.config.gpt
         inputs = self._code_inputs(text, params)
         ids, attn, tmask, temperature, spk_vec = inputs
@@ -519,5 +577,5 @@ class Chat:
             max_new=params.max_new_token, min_new=params.min_new_token,
             spk_vec=spk_vec, spk_emb_ids=self.tokenizer.spk_emb_ids,
             seed=params.manual_seed, ensure_non_empty=params.ensure_non_empty,
-            return_hidden=True)
+            return_hidden=use_decoder)
         return self.generator.generate(req, self.context)

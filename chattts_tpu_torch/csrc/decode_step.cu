@@ -29,10 +29,11 @@
 //
 // The int4 cache row is [p(HD/2) | m(H) | e(H) | zeros], HD/2 + 128 bytes:
 // feature f < HD/2 in the low nibble of byte f, feature HD/2 + f in its high
-// nibble, scales from absmax / 7.  Two heads share every byte there, so the
-// append is a launch of its own, one block per row, before the attention
-// pair (which for this tier only ropes q and attends): no two blocks write
-// one byte, and nothing rests on an order between blocks.
+// nibble, scales from absmax / 7.  Two heads (h and h + H/2) share every
+// byte there, so the append is a launch of its own before the attention
+// pair (which for this tier only ropes q and attends), one warp to a head
+// pair's bytes of the k or the v row: no two warps write one byte, and
+// nothing rests on an order between them.
 //
 // Quantized weights are (N, K) int8, or (N, K/2) bytes with weight 2j in
 // the low nibble of byte j and 2j + 1 in the high one, beside f32 scales
@@ -518,72 +519,126 @@ __device__ __forceinline__ bool row_is_live(int c, int lob, int T) {
   return c >= 0 && c < T && c - lob + 1 > 0;
 }
 
-// The kv4 append, one block per row b: rope k, quantize the whole roped k
-// row and the v row per head, and write row cur[b] of this layer's caches,
-// [packed(HD/2) | m(H) | e(H) | zeros].  A byte carries feature f (low
-// nibble) and feature HD/2 + f (high), that is two heads, which is why one
-// block writes the whole row.  A row the attention kernel poisons (position
-// outside [0, T), or no visible key) is not written.  Shared memory: the
-// f32 k and v rows and their per-head divisors, (2 HD + 2 H) floats.
-__global__ void __launch_bounds__(kAttnThreads)
+// The kv4 append: one warp per (row b, head pair p, k or v), B * H warps,
+// kAppendWarps to a block.  A packed byte f < QW = HD / 2 holds feature f in
+// its low nibble and feature QW + f in its high one; H is even, so bytes
+// [p Dh, (p + 1) Dh) of pair p < H / 2 hold head p in their low nibbles and
+// head p + H / 2 in their high ones, and one warp owns them outright.  Lane
+// l holds features l + 32 j (j < NJ = Dh / 32) of both heads; Dh % 64 == 0,
+// so k's rope partner d -+ Dh / 2 is slice j -+ NJ / 2 of the same lane and
+// the rope needs no shuffle.  Two warp maxima give the heads' absmax,
+// head_scale their divisors; each lane packs and stores its NJ bytes, lane
+// 0 the four scale bytes, and the k warp of pair 0 zeroes both rows' pad
+// with 16-byte stores.  No shared memory, no block barrier.  Bound on an
+// H100: bytes, 0.02-0.15 us at 8-64 rows; what a launch costs is the chain
+// of latencies it walks, so a warp's chain is kept to its loads (issued
+// before the position is read), two 5-step shuffle reductions and its
+// stores (PERF.md).
+// Every rounding is ops/kv_quant.py's kv4 path, step for step, so appended
+// rows equal the plain version's bytes: the rope partner rounded to bf16,
+// the two products and their sum each rounded (no fused multiply-add, as
+// torch computes x * cos + rot * sin), head_scale, the IEEE division x / div
+// and half-to-even rint.  A row the attention kernel poisons (position
+// outside [0, T), or no visible key) is not written.
+constexpr int kAppendWarps = 4;
+
+template <int NJ>
+__global__ void __launch_bounds__(kAppendWarps * 32)
 kv4_append_kernel(const float* __restrict__ qkv, const float* __restrict__ cosb,
                   const float* __restrict__ sinb, int8_t* __restrict__ kc,
                   int8_t* __restrict__ vc, const int* __restrict__ cur,
-                  const int* __restrict__ lo, int T, int H, int Dh) {
-  extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x;
-  const int HD = H * Dh, half = Dh / 2, QW = HD / 2, W = QW + kKvPad;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  float* kf = sm;            // [HD] roped k
-  float* vf = kf + HD;       // [HD] v
-  float* kdiv = vf + HD;     // [H]
-  float* vdiv = kdiv + H;    // [H]
-  const int c = cur[b];
-  if (!row_is_live(c, max(lo[b], 0), T)) return;  // uniform over the block
-  const float* k = qkv + (size_t)b * 3 * HD + HD;
-  const float* v = k + HD;
-  for (int f = tid; f < HD; f += nthreads) {
-    const int d = f % Dh, base = f - d;
-    const float cs = cosb[b * Dh + d], sn = sinb[b * Dh + d];
-    const float rk = d < half ? -bf16_round(k[base + d + half])
-                              : bf16_round(k[base + d - half]);
-    kf[f] = k[f] * cs + rk * sn;
-    vf[f] = v[f];
+                  const int* __restrict__ lo, int B, int T, int H) {
+  constexpr int Dh = NJ * 32;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kAppendWarps + (threadIdx.x >> 5);
+  if (w >= B * H) return;  // uniform over the warp
+  const int b = w / H, HP = H / 2, HD = H * Dh, QW = HD / 2;
+  const int W = QW + kKvPad;
+  const bool is_v = w % H >= HP;
+  const int p = w % H - (is_v ? HP : 0);
+  // issue every load before the position is known
+  const float* src = qkv + (size_t)b * 3 * HD + (is_v ? 2 : 1) * HD;
+  float xl[NJ], xh[NJ];  // heads p and p + H / 2
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    xl[j] = src[p * Dh + lane + 32 * j];
+    xh[j] = src[(p + HP) * Dh + lane + 32 * j];
   }
-  __syncthreads();
-  int8_t* krow = kc + ((size_t)b * T + c) * W;
-  int8_t* vrow = vc + ((size_t)b * T + c) * W;
-  for (int hh = warp; hh < 2 * H; hh += nwarps) {  // k heads, then v heads
-    const int h = hh % H;
-    const float* x = (hh < H ? kf : vf) + h * Dh;
-    float a = 0.f;
-    for (int d = lane; d < Dh; d += 32) a = fmaxf(a, fabsf(x[d]));
-    a = warp_max(a);
-    float mant;
-    int es;
-    const float div = head_scale(a, 7.0f, &mant, &es);
-    if (lane == 0) {
-      (hh < H ? kdiv : vdiv)[h] = div;
-      int8_t* row = hh < H ? krow : vrow;
-      row[QW + h] = (int8_t)mant;
-      row[QW + H + h] = (int8_t)es;
+  const int c = cur[b], lob = max(lo[b], 0);
+  if (!is_v) {  // rope k: x cos + rotate_half(bf16(x)) sin
+    float cs[NJ], sn[NJ], rl[NJ], rh[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      cs[j] = cosb[b * Dh + lane + 32 * j];
+      sn[j] = sinb[b * Dh + lane + 32 * j];
     }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const bool first = j < NJ / 2;
+      const int jp = first ? j + NJ / 2 : j - NJ / 2;
+      const float pl = first ? -bf16_round(xl[jp]) : bf16_round(xl[jp]);
+      const float ph = first ? -bf16_round(xh[jp]) : bf16_round(xh[jp]);
+      rl[j] = __fadd_rn(__fmul_rn(xl[j], cs[j]), __fmul_rn(pl, sn[j]));
+      rh[j] = __fadd_rn(__fmul_rn(xh[j], cs[j]), __fmul_rn(ph, sn[j]));
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) xl[j] = rl[j], xh[j] = rh[j];
   }
-  __syncthreads();
-  for (int f = tid; f < QW; f += nthreads) {
-    const int hl = f / Dh, hh = (QW + f) / Dh;
-    const int klo = (int)quantize_value(kf[f], kdiv[hl], 7.0f);
-    const int khi = (int)quantize_value(kf[QW + f], kdiv[hh], 7.0f);
-    const int vlo = (int)quantize_value(vf[f], vdiv[hl], 7.0f);
-    const int vhi = (int)quantize_value(vf[QW + f], vdiv[hh], 7.0f);
-    krow[f] = (int8_t)((klo & 15) | ((khi & 15) << 4));
-    vrow[f] = (int8_t)((vlo & 15) | ((vhi & 15) << 4));
+  if (!row_is_live(c, lob, T)) return;  // uniform over the warp
+  float al = 0.f, ah = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    al = fmaxf(al, fabsf(xl[j]));
+    ah = fmaxf(ah, fabsf(xh[j]));
   }
-  for (int i = QW + 2 * H + tid; i < W; i += nthreads) {  // pad lanes: zero
-    krow[i] = 0;
-    vrow[i] = 0;
+  al = warp_max(al);
+  ah = warp_max(ah);
+  float ml, mh;
+  int el, eh;
+  const float dl = head_scale(al, 7.0f, &ml, &el);
+  const float dh = head_scale(ah, 7.0f, &mh, &eh);
+  int8_t* row = (is_v ? vc : kc) + ((size_t)b * T + c) * W;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int ql = (int)quantize_value(xl[j], dl, 7.0f);
+    const int qh = (int)quantize_value(xh[j], dh, 7.0f);
+    row[p * Dh + lane + 32 * j] = (int8_t)((ql & 15) | ((qh & 15) << 4));
   }
+  if (lane == 0) {
+    row[QW + p] = (int8_t)ml;
+    row[QW + p + HP] = (int8_t)mh;
+    row[QW + H + p] = (int8_t)el;
+    row[QW + H + p + HP] = (int8_t)eh;
+  }
+  if (p == 0 && !is_v) {  // the pad past the 2H scale lanes of both rows
+    int8_t* krow = kc + ((size_t)b * T + c) * W;
+    int8_t* vrow = vc + ((size_t)b * T + c) * W;
+    const int start = QW + 2 * H, a16 = (start + 15) & ~15;
+    if (lane < a16 - start) krow[start + lane] = 0, vrow[start + lane] = 0;
+    const int n16 = (W - a16) / 16;  // W % 16 == 0: QW % 128 == 0
+    for (int i = lane; i < 2 * n16; i += 32)
+      *reinterpret_cast<uint4*>((i < n16 ? krow : vrow) + a16 +
+                                16 * (i % n16)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// One layer's kv4 append on caches kl/vl (B, T, HD/2 + 128) int8; needs H
+// even and Dh 64 or 128 (the rope partner in the same lane).
+cudaError_t launch_kv4_append(const float* qkv, const float* cosb,
+                              const float* sinb, int8_t* kl, int8_t* vl,
+                              const int* cur, const int* lo, int B, int T,
+                              int H, int Dh, cudaStream_t st) {
+  if (B < 1 || T < 1 || H < 2 || H % 2 || 2 * H > kKvPad || (H * Dh) % 256 ||
+      (Dh != 64 && Dh != 128))
+    return cudaErrorInvalidValue;
+  const int blocks = (B * H + kAppendWarps - 1) / kAppendWarps;
+  if (Dh == 64)
+    kv4_append_kernel<2><<<blocks, kAppendWarps * 32, 0, st>>>(
+        qkv, cosb, sinb, kl, vl, cur, lo, B, T, H);
+  else
+    kv4_append_kernel<4><<<blocks, kAppendWarps * 32, 0, st>>>(
+        qkv, cosb, sinb, kl, vl, cur, lo, B, T, H);
+  return cudaGetLastError();
 }
 
 // How the attention pair reads a head's part of a cache row: G = Dh / F
@@ -986,17 +1041,9 @@ cudaError_t launch_attend(const StepArgs& a, char* kl, char* vl) {
   const int B = a.B, T = a.T, H = a.H, Dh = a.Dh;
   cudaError_t e;
   if (KV == KV_INT4) {  // the append is its own launch: see kv4_append_kernel
-    const size_t asmem = (size_t)(2 * H * Dh + 2 * H) * sizeof(float);
-    if (asmem > kDefaultSmem) {  // per device: set on every call
-      e = cudaFuncSetAttribute(kv4_append_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)asmem);
-      if (e != cudaSuccess) return e;
-    }
-    kv4_append_kernel<<<B, kAttnThreads, asmem, a.st>>>(
-        a.qkv, a.cosb, a.sinb, reinterpret_cast<int8_t*>(kl),
-        reinterpret_cast<int8_t*>(vl), a.cur, a.lo, T, H, Dh);
-    e = cudaGetLastError();
+    e = launch_kv4_append(a.qkv, a.cosb, a.sinb, reinterpret_cast<int8_t*>(kl),
+                          reinterpret_cast<int8_t*>(vl), a.cur, a.lo, B, T, H,
+                          Dh, a.st);
     if (e != cudaSuccess) return e;
   }
   // chunks a row may have, and blocks for them: enough for kAttnBlocks in
@@ -1093,7 +1140,7 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
   if (B < 1 || B > kMaxB || D % 8 || I % 8 || Dh % 16 || Dh > kMaxDh ||
       T < 1 || (kv_bits && 2 * H > kKvPad) ||
       (kv_bits != KV_BF16 && kv_bits != KV_INT8 && kv_bits != KV_INT4) ||
-      (kv_bits == KV_INT4 && HD % 256) ||
+      (kv_bits == KV_INT4 && (HD % 256 || H % 2 || Dh % 64)) ||
       (weight_bits != W_BF16 && weight_bits != W_INT8 &&
        weight_bits != W_INT4) ||
       (quant && (group < 32 || group % 32 || D % group || HD % group ||
@@ -1164,6 +1211,25 @@ int decode_step_gemv(const void* x, int x_stride, const void* lnw,
                                         out_stride, B, K, N, eps, st);
   return (int)launch_gemv_any<W_BF16>(mode, add, xf, x_stride, lf, wt, of,
                                       out_stride, B, K, N, eps, st);
+}
+
+// One layer's kv4 append on its own (the step's seventh launch on the int4
+// cache): rope k of qkv (B, 3 HD) f32 with cos/sin (B, Dh) f32, quantize k
+// and v per head and write row cur[b] of row b of kc/vc (B, T, HD/2 + 128)
+// int8, pad zeroed, where cur[b] is in [0, T) and sees a key from lo[b];
+// other rows are not touched.  Device pointers, kc and vc 16-byte aligned;
+// H even, Dh 64 or 128, H * Dh % 256 == 0.  Returns the CUDA error (0 on
+// success).
+int decode_step_kv4_append(const void* qkv, const void* cosb,
+                           const void* sinb, void* kc, void* vc,
+                           const void* cur, const void* lo, int B, int T,
+                           int H, int Dh, void* stream) {
+  return (int)launch_kv4_append(
+      static_cast<const float*>(qkv), static_cast<const float*>(cosb),
+      static_cast<const float*>(sinb), static_cast<int8_t*>(kc),
+      static_cast<int8_t*>(vc), static_cast<const int*>(cur),
+      static_cast<const int*>(lo), B, T, H, Dh,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Keys of a row's window one attention block owns, as built.

@@ -39,7 +39,10 @@ combinations are three gemv instantiations times three attention ones.
 * :data:`gemv` launches one of the step's gemvs on its own (the kernel's
   entry for tests and timing, counted in ``decode_step.gemv_launches``);
   :func:`gemv_plain` is its plain version and :func:`gemv_tolerance` the
-  error bound the kernel is held to.  The step never calls them.
+  error bound the kernel is held to.  :data:`kv4_append` likewise launches
+  the kv4 cache's append alone (``decode_step.kv4_append_launches``), with
+  :func:`kv4_append_plain` as its plain version.  The step never calls
+  them.
 
 The caches are updated in place (the TPU kernel aliases them too): only row
 ``cur_b`` of row b of every layer is written.  The kv8 and kv4 row formats
@@ -426,6 +429,29 @@ def attend_plain(q: torch.Tensor, kr: torch.Tensor, vr: torch.Tensor,
     return o.reshape(B, HD)
 
 
+def _append_rows(cur: torch.Tensor, lo: torch.Tensor, T: int):
+    """Rows whose position the kernel appends at: ``cur`` in [0, T) and at
+    least one visible key from max(lo, 0)."""
+    return (cur >= 0) & (cur < T) & (cur - torch.clamp(lo, min=0) + 1 > 0)
+
+
+def kv4_append_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     k_rows: torch.Tensor, v_rows: torch.Tensor,
+                     cur: torch.Tensor, lo: torch.Tensor, cfg) -> None:
+    """One layer's kv4 append in torch ops: rope k of qkv (B, 3 HD) f32,
+    quantize k and v per head (``kv_quant.kv4_quantize``) and write row
+    ``cur[b]`` of row b of ``k_rows``/``v_rows`` (B, T, HD/2 + KV_PAD) int8
+    where the kernel would (:func:`_append_rows`); other rows untouched."""
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    HD = H * Dh
+    live = _append_rows(cur, lo, k_rows.shape[1])
+    rows = torch.arange(qkv.shape[0], device=qkv.device)[live]
+    k = _rope(qkv[:, HD:2 * HD], cos, sin, H)[live]
+    quantize = kv_quantizer(4, cfg)
+    k_rows[rows, cur[live].long()] = quantize(k, cfg)
+    v_rows[rows, cur[live].long()] = quantize(qkv[live, 2 * HD:], cfg)
+
+
 def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, cur: Union[int, torch.Tensor],
                       lo: torch.Tensor, positions: torch.Tensor, cfg
@@ -483,6 +509,15 @@ def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
     return x
 
 
+def _check_kv4_kernel(cfg) -> None:
+    """What ``kv4_append_kernel`` takes beyond kv4 rows: an even head count
+    and Dh 64 or 128 (a lane holds a feature and its rope partner)."""
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    if H % 2 or Dh not in (64, 128):
+        raise ValueError(f"the kv4 append kernel needs an even head count "
+                         f"and a head dim of 64 or 128, not H {H}, Dh {Dh}")
+
+
 class DecodeStep:
     """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  ``variant_launches`` counts kernel launches (one per step)
@@ -495,6 +530,7 @@ class DecodeStep:
         the card."""
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         self.gemv_launches = 0  # launches of the one-gemv entry
+        self.kv4_append_launches = 0  # launches of the one-append entry
         self.library = CudaLibrary("decode_step.cu", defines)
         self._chunk = None
         self._tickets: Dict[tuple, torch.Tensor] = {}
@@ -558,6 +594,56 @@ class DecodeStep:
                                f"{err}")
         self.gemv_launches += 1
         return out
+
+    def kv4_append(self, qkv: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor, k_rows: torch.Tensor,
+                   v_rows: torch.Tensor, cur: torch.Tensor, lo: torch.Tensor,
+                   cfg) -> None:
+        """The step's kv4 append on its own, for one layer: qkv (B, 3 HD)
+        f32, cos/sin (B, Dh) f32, caches (B, T, HD/2 + KV_PAD) int8
+        written in place, cur and lo (B,).  CUDA tensors launch
+        ``kv4_append_kernel`` (counted in ``kv4_append_launches``), CPU
+        tensors take :func:`kv4_append_plain`.  The step does not call
+        this: it is the kernel's entry for tests and timing."""
+        H, Dh = cfg.num_attention_heads, cfg.head_dim
+        B, HD = qkv.shape[0], H * Dh
+        T = k_rows.shape[1]
+        if (tuple(qkv.shape) != (B, 3 * HD) or qkv.dtype != torch.float32
+                or tuple(cos.shape) != (B, Dh) or cos.shape != sin.shape
+                or k_rows.dtype != torch.int8 or k_rows.shape != v_rows.shape
+                or tuple(k_rows.shape) != (B, T, row_width(4, cfg))
+                or tuple(cur.shape) != (B,) or tuple(lo.shape) != (B,)):
+            raise ValueError("kv4_append takes qkv (B, 3 HD) f32, cos/sin "
+                             "(B, Dh), caches (B, T, HD/2 + KV_PAD) int8, "
+                             "cur and lo (B,)")
+        tensors = (qkv, cos, sin, k_rows, v_rows, cur, lo)
+        if any(t.device != qkv.device for t in tensors):
+            raise ValueError("kv4_append's tensors must be on one device")
+        if qkv.device.type == "cpu":
+            kv4_append_plain(qkv, cos, sin, k_rows, v_rows, cur, lo, cfg)
+            return
+        if qkv.device.type != "cuda":
+            raise ValueError(f"kv4_append runs on cuda or cpu, not "
+                             f"{qkv.device}")
+        _check_kv4_kernel(cfg)
+        if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in (qkv, cos, sin, k_rows, v_rows)):
+            raise ValueError("kv4_append's tensors must be contiguous and "
+                             "16-byte aligned")
+        cur32 = cur.to(torch.int32).contiguous()
+        lo32 = lo.to(torch.int32).contiguous()
+        fn = self.library.get().decode_step_kv4_append
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        stream = torch.cuda.current_stream(qkv.device)
+        err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                 k_rows.data_ptr(), v_rows.data_ptr(), cur32.data_ptr(),
+                 lo32.data_ptr(), B, T, H, Dh, stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"decode_step_kv4_append failed with CUDA "
+                               f"error {err}")
+        self.kv4_append_launches += 1
 
     @property
     def attn_chunk(self) -> int:
@@ -623,6 +709,8 @@ class DecodeStep:
         if D % 8 or I % 8 or Dh % 16 or 128 % Dh:
             raise ValueError("the decode step needs D, I multiples of 8 and "
                              "Dh a multiple of 16 dividing 128")
+        if kvb == 4:
+            _check_kv4_kernel(cfg)
         if wb and (gs % 32 or D % gs or I % gs):
             raise ValueError(f"the gemv needs scale groups of a multiple of "
                              f"32 rows dividing D and I, not {gs}")
@@ -671,3 +759,4 @@ class DecodeStep:
 
 decode_step = DecodeStep()
 gemv = decode_step.gemv
+kv4_append = decode_step.kv4_append

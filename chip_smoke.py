@@ -8,7 +8,11 @@
    Then the step's gemv alone (``phase_gemv``): the full model's four
    shapes at 8, 16 and 64 rows on bf16, int8 and int4 weights through the
    one-gemv entry, each held to ``gemv_plain`` within its stated error
-   bound, with its device us, ``torch.matmul``'s and its bytes bound.
+   bound, with its device us, ``torch.matmul``'s and its bytes bound.  And
+   the kv4 cache's append alone (``phase_kv4_append``) at the full model's
+   heads on 8, 16 and 64 rows: its bytes equal to ``kv4_append_plain``'s
+   on the CPU copy of the same inputs, its device us, the plain version's
+   and its bytes bound.
 2. Holds the decode step kernel (``ops/decode_step.py``) against its plain
    PyTorch version on the card at the full model width, in every variant:
    K1 (bf16 cache, one position), K2 (a position per row), K3 (int8 cache
@@ -42,7 +46,9 @@
    undiluted, and shows that this check rejects planted attention faults:
    four common ones, a neighbouring head's k or v scale (kv8, kv4), the
    two nibbles of every key byte swapped (kv4), and row 0's position used
-   for every row (per-row positions).  Then one full-width layer whose
+   for every row (per-row positions).  On the kv4 cache the rows the step
+   appended must equal, byte for byte, the plain append of the q, k and v
+   of the kernel's own qkv gemv.  Then one full-width layer whose
    attention is off, so the MLP's output is compared undiluted, for the
    int8 and int4 weights, with planted faults in the weight scales: the
    int8 ``down`` scales of a neighbouring contraction group, and one int4
@@ -53,7 +59,17 @@
    set to 0 just before and read just after, and checks 4 finite non-empty
    waveforms.  Kernel calls of those runs (the first step and a later one
    of each pass) are kept and held against the plain version on their own
-   inputs.
+   inputs.  Then ``Chat.infer`` with its default arguments on the 4 texts
+   joined as sentences, on the Generator and on the engine route: the
+   auto-clone branch (segment 0 synthesized, its wav encoded by the DVAE
+   encoder, the codes prompting all 4 segments) gives one finite wav; the
+   clone branch is timed, and the share of its codes that the card's
+   encoder gives equal to the CPU's encode of the same wav is printed with
+   TF32 as PyTorch leaves it and off (at least 0.99 off).  Then
+   ``use_decoder=False`` (codes through the GFSQ and the DVAE's decoder).
+   These runs too keep the first step and a later one of each pass and
+   hold them against the plain version, and their launches against the
+   decode steps the passes report.
 5. Runs the continuous-batching ``Engine`` at the capacity geometry (16
    slots, 512-token prompt region, 2048 new tokens, int8 cache) on 24
    seeded requests, two of them twins submitted in different waves, checks
@@ -64,7 +80,8 @@
    a resume prefill; then ``Chat.infer`` with ``use_engine=True`` on the 4
    texts, on the int8 cache (K2+K3) and on bf16 (K2), with calls of both
    its engines kept and held against the plain version, and K2 timed on
-   one of them.
+   one of them.  The wide tier (32 slots on the int8 cache), as the facade
+   routes more than 16 requests to it, on 40 requests, kept calls held.
 6. The quantized tiers' main paths, each with the launch counts set to 0
    just before and read just after, and kept calls held to the plain
    version: ``Chat.infer`` on the Generator with ``weight_bits=8,
@@ -78,9 +95,11 @@
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``.
 
-TF32 is switched off for matmuls and cuDNN convolutions, so float32 math on
-the card is float32.  Exits non-zero without a result line when no CUDA
-device is present or any check fails; the last line is the device JSON.
+TF32 is switched off for matmuls and cuDNN convolutions (the multi-segment
+phase turns cuDNN's back on for one encode, then restores it), so float32
+math on the card is float32.  Exits non-zero without a result line when no
+CUDA device is present or any check fails; the last line is the device
+JSON.
 """
 
 import collections
@@ -1072,6 +1091,31 @@ def _attention_o(packed, emb, kc, vc, cur, lo, positions, cfg, fault=None):
     return attend_plain(q, keys, vc[0], visible[:, None, :], cfg, **hooks)
 
 
+def _check_kv4_step_rows(packed, emb, base_k, base_v, kk, vk, cur, lo, pos,
+                         cfg, variant):
+    """The rows a one-layer kv4 step appended (kk, vk) against
+    ``kv4_append_plain`` on the CPU, fed the q, k and v of the kernel's own
+    qkv gemv (the one-gemv entry runs the step's instantiation on the same
+    rows: bit for bit the step's): every byte of both caches equal."""
+    import torch
+    from chattts_tpu_torch.ops import decode_step as ds
+
+    B, HD = emb.shape[0], cfg.num_attention_heads * cfg.head_dim
+    qkv = torch.empty((B, 3 * HD), device=emb.device)
+    ds.gemv(emb.float().contiguous(), packed["ln1"][0], packed["wqkv"][0],
+            None, 0, qkv, ds.GEMV_RMS, False, cfg.rms_norm_eps)
+    cos, sin = ds.rope_rows(cfg, pos)
+    kp, vp = base_k[0].cpu(), base_v[0].cpu()
+    ds.kv4_append_plain(qkv.cpu(), cos.cpu(), sin.cpu(), kp, vp,
+                        _cur_rows(cur, B, emb.device).cpu(), lo.cpu(), cfg)
+    torch.cuda.synchronize()
+    differ = int((kk[0].cpu() != kp).sum() + (vk[0].cpu() != vp).sum())
+    print(f"{variant} one layer: the step's appended kv4 rows against the "
+          f"plain append of the kernel's own qkv: {differ} bytes differ")
+    check(differ == 0, f"{variant}: the step's kv4 rows differ from the "
+          f"plain append in {differ} bytes")
+
+
 def phase_attention(dev):
     """Every variant against the plain version on one full-width layer
     whose MLP is off and whose wo is the identity, so the step adds exactly
@@ -1127,11 +1171,16 @@ def phase_attention(dev):
         base_k = quantize(bf_k, cfg) if quantize else bf_k
         base_v = quantize(bf_v, cfg) if quantize else bf_v
         pos = _cur_rows(cur, B, dev) - lo
-        step = {}
+        step, caches = {}, {}
         for name, fn in (("kernel", decode_step), ("plain", decode_step_plain)):
             kc, vc = base_k.clone(), base_v.clone()
             step[name] = fn(packed, emb, kc, vc, cur, lo, pos, cfg) - emb
+            caches[name] = kc, vc
         want = step["plain"]
+        if kv_bits == 4:
+            _check_kv4_step_rows(packed, emb, base_k, base_v,
+                                 *caches["kernel"], cur, lo, pos, cfg,
+                                 variant)
 
         def copy_reading(fault=None):
             return reading((emb + _bf16(_attention_o(
@@ -1371,6 +1420,98 @@ def phase_gemv(dev):
     return totals
 
 
+KV4_ROWS_TIMED = (8, 16, 64)
+
+
+def _kv4_append_inputs(cfg, B, T, dev, seed):
+    """One full-width kv4 append on the card, seeded: qkv (B, 3 HD) f32,
+    the rope rows, two caches of random bytes (B, T, HD/2 + 128) int8 and
+    int32 positions across the cache; with 8 or more rows, row 1 sits past
+    the cache and row 2 sees no key (neither is written)."""
+    import torch
+    from chattts_tpu_torch.ops.decode_step import rope_rows
+    from chattts_tpu_torch.ops.kv_quant import row_width
+
+    HD = cfg.num_attention_heads * cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((B, 3 * HD), generator=gen, device=dev)
+    caches = [torch.randint(-128, 128, (B, T, row_width(4, cfg)),
+                            generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2)]
+    cur = torch.randint(0, T, (B,), generator=gen, device=dev)
+    lo = torch.randint(0, T, (B,), generator=gen, device=dev) % (cur + 1)
+    if B >= 8:
+        cur[1], lo[1], cur[2], lo[2] = T, 0, 5, 6
+    cos, sin = rope_rows(cfg, (cur - lo).clamp(min=0))
+    return (qkv, cos.contiguous(), sin.contiguous(), *caches,
+            cur.to(torch.int32), lo.to(torch.int32))
+
+
+def _kv4_append_bytes(case, cfg, where):
+    """The kernel's append (``decode_step.kv4_append``) on copies of
+    ``case`` against ``kv4_append_plain`` on the CPU copy of the same
+    inputs, where torch divides as IEEE does: every byte of both caches
+    equal.  Returns the rows written."""
+    import torch
+    from chattts_tpu_torch.ops import decode_step as ds
+
+    qkv, cos, sin, kc, vc, cur, lo = case
+    kk, vk = kc.clone(), vc.clone()
+    ds.kv4_append(qkv, cos, sin, kk, vk, cur, lo, cfg)
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in case]
+    ds.kv4_append_plain(*cpu, cfg)
+    for got, want, name in ((kk, cpu[3], "k"), (vk, cpu[4], "v")):
+        got = got.cpu()
+        differ = int((got != want).sum())
+        check(differ == 0, f"kv4 append ({where}): {differ} bytes of the "
+              f"{name} cache differ from the plain version")
+    return int(ds._append_rows(cpu[5], cpu[6], kc.shape[1]).sum())
+
+
+def phase_kv4_append(dev):
+    """The kv4 append alone (``decode_step.kv4_append``, one warp per row,
+    head pair and k or v) at the full model's heads on 8, 16 and 64 rows of
+    a 2560-row cache: its bytes against the plain version's
+    (_kv4_append_bytes), its device us a launch (CUDA events over launches
+    queued behind a spin, and the profiler's time of the kernel itself),
+    the plain version's on the card and the bytes bound (every row's cur
+    and lo read; k, v, cos and sin read and the two cache rows written for
+    the rows that are written).  Prints one JSON line."""
+    from chattts_tpu_torch.config import Config
+    from chattts_tpu_torch.ops import decode_step as ds
+    from chattts_tpu_torch.ops.kv_quant import row_width
+
+    cfg = Config().gpt
+    HD = cfg.num_attention_heads * cfg.head_dim
+    rows = []
+    for B in KV4_ROWS_TIMED:
+        case = _kv4_append_inputs(cfg, B, 2560, dev, 40 + B)
+        live = _kv4_append_bytes(case, cfg, f"B {B}")
+        us = 1e3 * _device_ms(lambda: ds.kv4_append(*case, cfg), iters=100)
+        events = _kernel_events(lambda: [ds.kv4_append(*case, cfg)
+                                         for _ in range(20)])
+        kern = [t for n, t in events if n.startswith("kv4_append_kernel")]
+        check(len(kern) == 20, f"profiled {len(kern)} of 20 kv4 appends")
+        prof_us = sum(kern) / len(kern)
+        plain_us = 1e3 * _device_ms(lambda: ds.kv4_append_plain(*case, cfg),
+                                    iters=10)
+        # a row that is not written needs only its cur and lo
+        nbytes = (live * (2 * HD * 4 + 2 * cfg.head_dim * 4
+                          + 2 * row_width(4, cfg)) + 2 * B * 4)
+        bound_ms, by = _bound_ms(nbytes, 0)
+        rows.append({"B": B, "rows_written": live, "us": us,
+                     "profiled_us": prof_us, "plain_us": plain_us,
+                     "bound_us": 1e3 * bound_ms, "bound_by": by})
+        print(f"kv4 append alone B {B} (T 2560, {live} rows written): "
+              f"kernel {us:.3f} us a launch back to back, {prof_us:.3f} us "
+              f"profiled, plain {plain_us:.2f} us, bound {1e3 * bound_ms:.4f} "
+              f"us ({by}); bytes equal to the plain version's")
+    print("kv4 append rows " + json.dumps(rows))
+    print(f"kv4 append: {ds.decode_step.kv4_append_launches} launches of "
+          f"the one-append entry")
+
+
 def _bf16(x):
     return x.bfloat16().float()
 
@@ -1473,24 +1614,12 @@ def _check_wavs(wavs):
 
 def phase_infer(chat, variant, max_new, profile):
     """``Chat.infer`` on the Generator of ``chat``, whose tiers make every
-    step the given variant: 4 texts, the launch counts read around it, kept
-    calls checked.  Returns the launches by variant and the kept calls'
-    largest hidden error."""
-    import torch
+    step the given variant: 4 texts as a main path (_main_path_run:
+    launches counted around it, kept calls checked).  Returns the launches
+    by variant and the kept calls' largest hidden error."""
     from chattts_tpu_torch import Chat
-    from chattts_tpu_torch.engine import generate as gen_mod
-    from chattts_tpu_torch.ops.decode_step import decode_step
 
     title = f"infer weight_bits={chat.weight_bits} kv_bits={chat.kv_bits}"
-    steps = []
-    generate = chat.generator.generate
-
-    def counted(req, context=None):
-        for out in generate(req, context):
-            steps.append(out.steps)
-            yield out
-
-    chat.generator.generate = counted
     refine = Chat.RefineTextParams(max_new_token=32, min_new_token=4,
                                    manual_seed=11, show_tqdm=False)
     code = Chat.InferCodeParams(max_new_token=max_new, min_new_token=64,
@@ -1499,7 +1628,6 @@ def phase_infer(chat, variant, max_new, profile):
     chat.infer(TEXTS[:1], split_text=False, params_refine_text=refine,
                params_infer_code=Chat.InferCodeParams(
                    max_new_token=8, manual_seed=1, show_tqdm=False))
-    steps.clear()
 
     decoded = []
     device_decode = chat._device_decode
@@ -1508,53 +1636,26 @@ def phase_infer(chat, variant, max_new, profile):
         decoded.append((hid, end))
         return device_decode(hid, end)
 
-    chat._device_decode = capture
-
-    # keep the first step and step 63 of each pass (a cur that does not
-    # follow the last one marks a new pass)
-    state = {"n": 0, "next": None}
-
-    def want(n, cur, kc):
-        if state["next"] != cur:
-            state["n"] = 0
-        keep = state["n"] in (0, 63)
-        state["n"] += 1
-        state["next"] = cur + 1
-        return keep
-
-    keeper = Keeper(want)
-
     def run():
         return chat.infer(TEXTS, split_text=False,
                           params_refine_text=refine, params_infer_code=code)
 
-    decode_step.launches = 0
-    gen_mod.k1.decode_step = keeper
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    chat._device_decode = capture
     try:
-        wavs = run()
-        torch.cuda.synchronize()
+        # refine and code pass: the first step of each kept, and a later
+        # one of the code pass
+        wavs, wall, counts, errs, steps = _main_path_run(chat, run, title, 3)
     finally:
-        gen_mod.k1.decode_step = decode_step
-    wall = time.perf_counter() - t0
-    counts = dict(decode_step.variant_launches)
-    launches = counts[variant]
-    kept_err = check_kept_calls(chat.packed, chat.gpt_params["norm"],
-                                chat.config.gpt, keeper.kept, title, 2)
-
+        del chat._device_decode
     n_steps = sum(steps)
     _check_wavs(wavs)
-    check(launches > 0 and launches >= n_steps
-          and launches == sum(counts.values()),
-          f"{variant} launched {launches} times for {n_steps} decode steps "
-          f"(all variants: {counts})")
+    check(set(counts) == {variant},
+          f"{title}: launches {counts}, expected only {variant}")
     audio_s = sum(w.size for w in wavs) / chat.config.vocos.mel.sample_rate
     print(f"{title}: 4 texts, steps per pass {steps}, wall "
           f"{wall:.3f} s, {n_steps / wall:.1f} steps/s, audio {audio_s:.2f} s, "
           f"audio s / wall s {audio_s / wall:.3f}, {variant} launches "
-          f"{launches}")
-    chat._device_decode = device_decode
+          f"{counts[variant]}")
     if profile:
         check_decode_on_cpu(chat, *decoded[-1])
         # the same request again under the profiler
@@ -1564,8 +1665,257 @@ def phase_infer(chat, variant, max_new, profile):
               f"profiled run's {prof_wall:.3f} s wall "
               f"({100 * device_s / prof_wall:.1f}%; unprofiled wall "
               f"{wall:.3f} s)")
-    chat.generator.generate = generate
-    return counts, kept_err
+    return counts, errs[variant]
+
+
+def _encode_share(chat, wav, cpu_codes):
+    """Codes of ``chat.sample_audio_speaker``-style encodes of ``wav`` on
+    the card, with TF32 as PyTorch leaves it (cuDNN convolutions in TF32,
+    matmuls in float32) and with TF32 off, each as the share equal to the
+    CPU's codes ``cpu_codes``; the flags are restored."""
+    import numpy as np
+    import torch
+    from chattts_tpu_torch.models import dvae as dvae_mod
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    shares = {}
+    try:
+        for name, cudnn_tf32 in (("tf32 as the facade leaves it", True),
+                                 ("tf32 off", False)):
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            codes = dvae_mod.encode_audio(
+                chat.dvae_params, torch.from_numpy(wav[None]).cuda(),
+                chat.config.dvae, chat.config.vocos.mel)[0].cpu().numpy()
+            shares[name] = float(np.mean(codes == cpu_codes))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return shares
+
+
+def _main_path_run(c, run, title, at_least, later=48):
+    """``run()`` on the facade ``c`` as a main path: the launch counts set
+    to 0 just before and read just after, ``decode_step`` (the Generator's
+    and the engine's) replaced by a Keeper that keeps the first call of
+    each pass (a Generator's or an Engine's ``generate``) and the call
+    ``later`` steps on, and the decode steps the passes report counted.
+    Every call must have launched one kernel, the launches cover the
+    steps, at least ``at_least`` calls are kept, and the kept calls are
+    held to the plain version variant by variant.  Returns (the result,
+    wall seconds, launches by variant, {variant: the kept calls' largest
+    hidden error}, the decode steps of each pass)."""
+    import torch
+    from chattts_tpu_torch.engine import batching
+    from chattts_tpu_torch.engine import generate as gen_mod
+    from chattts_tpu_torch.ops.decode_step import decode_step, variant_of
+
+    state = {"n": 0}
+    steps = []
+
+    def want(n, cur, kc):
+        keep = state["n"] in (0, later)
+        state["n"] += 1
+        return keep
+
+    gen_generate, eng_generate = c.generator.generate, batching.Engine.generate
+
+    def gen_counted(req, context=None):
+        state["n"] = 0
+        for out in gen_generate(req, context):
+            steps.append(out.steps)
+            yield out
+
+    def eng_counted(eng, requests, context=None):
+        state["n"] = 0
+        before = eng.stats["steps_launched"]
+        outs = eng_generate(eng, requests, context)
+        steps.append(eng.stats["steps_launched"] - before)
+        return outs
+
+    keeper = Keeper(want)
+    c.generator.generate, batching.Engine.generate = gen_counted, eng_counted
+    gen_mod.k1.decode_step = keeper  # the engine's step_mod is this module
+    decode_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        gen_mod.k1.decode_step = decode_step
+        batching.Engine.generate = eng_generate
+        del c.generator.generate
+    wall = time.perf_counter() - t0
+    counts = {v: n for v, n in decode_step.variant_launches.items() if n}
+    launched = sum(counts.values())
+    check(launched == keeper.n and launched >= sum(steps) > 0,
+          f"{title}: {launched} launches ({counts}) for {keeper.n} calls and "
+          f"{sum(steps)} decode steps")
+    check(len(keeper.kept) >= at_least,
+          f"{title}: kept {len(keeper.kept)} calls, expected {at_least}")
+    cfg = c.config.gpt
+    errs = {}
+    for v in counts:
+        kept = [k for k in keeper.kept
+                if variant_of(k[0][1], k[0][3], c.packed, cfg) == v]
+        errs[v] = check_kept_calls(c.packed, c.gpt_params["norm"], cfg, kept,
+                                   f"{title} {v}", 1)
+    return out, wall, counts, errs, steps
+
+
+def phase_multi_segment(chat, engine_chat, kernels, launches):
+    """``Chat.infer`` with its default arguments on the 4 texts joined as
+    sentences: ``split_text`` cuts 4 segments and, with no ``spk_smp``
+    given, the auto-clone branch synthesizes segment 0, encodes its wav to
+    codes with the DVAE encoder and prompts all 4 segments with them; on
+    the Generator (``chat``) and on the engine route (``engine_chat``).
+    Checks one finite float32 wav each and the clone prompt's codes; each
+    run is a main path (_main_path_run: launches counted around it, the
+    first and a later step of the refine pass, segment 0's pass and the
+    4 segments' pass kept and held to the plain version, the errors folded
+    into ``kernels``).  On the Generator run it times the clone branch
+    (segment 0's synthesis and the encode), and measures the share of the
+    clone codes the card's encoder gives equal to the CPU's encode of the
+    same wav, with TF32 as the facade leaves it and off.  Then
+    ``use_decoder=False`` on the 4 texts, the same way: codes through the
+    GFSQ embed and the DVAE's decoder, 4 finite waveforms."""
+    import numpy as np
+    import torch
+    from chattts_tpu_torch import Chat
+    from chattts_tpu_torch.models import dvae as dvae_mod
+    from chattts_tpu_torch.models.speaker import Speaker
+    from chattts_tpu_torch.weights import to_device
+
+    def refine_params():
+        return Chat.RefineTextParams(max_new_token=32, min_new_token=4,
+                                     manual_seed=11, show_tqdm=False)
+
+    def code_params():
+        return Chat.InferCodeParams(max_new_token=128, min_new_token=64,
+                                    manual_seed=12, show_tqdm=False)
+
+    def fold(counts, errs):
+        for v in counts:
+            _fold(kernels, launches, {v: counts[v]}, v, errs[v])
+
+    text = " ".join(TEXTS)
+    for route, c in (("generator", chat), ("engine", engine_chat)):
+        refine, code = refine_params(), code_params()
+        clone = {}
+        generate_wavs, speaker = c._generate_wavs, c.sample_audio_speaker
+
+        def timed_generate(batch, use_decoder, params):
+            t0 = time.perf_counter()
+            wavs = generate_wavs(batch, use_decoder, params)
+            torch.cuda.synchronize()
+            clone.setdefault("batches", []).append(
+                (len(batch), time.perf_counter() - t0))
+            if "wav" not in clone:
+                clone["wav"] = wavs[0]
+            return wavs
+
+        def timed_speaker(wav):
+            t0 = time.perf_counter()
+            smp = speaker(wav)
+            clone["encode_s"] = time.perf_counter() - t0
+            return smp
+
+        c._generate_wavs, c.sample_audio_speaker = (timed_generate,
+                                                    timed_speaker)
+        try:
+            # refine (1 kept), segment 0 and the 4 segments (2 kept each)
+            wavs, wall, counts, errs, _ = _main_path_run(
+                c, lambda: c.infer(text, params_refine_text=refine,
+                                   params_infer_code=code),
+                f"infer 4 segments ({route})", 5)
+        finally:
+            del c._generate_wavs, c.sample_audio_speaker
+        fold(counts, errs)
+        check(len(wavs) == 1 and wavs[0].ndim == 1 and wavs[0].size > 0
+              and wavs[0].dtype == np.float32
+              and bool(np.isfinite(wavs[0]).all()),
+              f"multi-segment infer ({route}) gave {len(wavs)} waveforms")
+        check([n for n, _ in clone["batches"]] == [1, 4],
+              f"batches of the multi-segment run: {clone['batches']}")
+        codes = Speaker.decode_prompt(code.spk_smp)
+        check(codes.shape[0] == 4 and codes.shape[1] > 0,
+              f"clone prompt codes {codes.shape}")
+        seg0_s = clone["batches"][0][1]
+        audio_s = wavs[0].size / chat.config.vocos.mel.sample_rate
+        print(f"infer 4 segments ({route}, default arguments): wall "
+              f"{wall:.3f} s, audio {audio_s:.2f} s, the clone branch "
+              f"{seg0_s + clone['encode_s']:.3f} s (segment 0's synthesis "
+              f"{seg0_s:.3f} s, its encode {clone['encode_s']:.3f} s, "
+              f"{codes.shape[1]} prompt codes), launches {counts}, kept "
+              f"calls' hidden max-abs {errs}")
+        if route == "generator":
+            wav = np.asarray(clone["wav"], np.float32)
+            cpu = torch.device("cpu")
+            cpu_codes = dvae_mod.encode_audio(
+                to_device(chat.dvae_params, cpu),
+                torch.from_numpy(wav[None]), chat.config.dvae,
+                chat.config.vocos.mel)[0].numpy()
+            shares = _encode_share(chat, wav, cpu_codes)
+            print(f"clone codes on the card equal to the CPU encode of the "
+                  f"same wav ({cpu_codes.shape[0]} x {cpu_codes.shape[1]}): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+            check(shares["tf32 off"] >= 0.99,
+                  f"the card's encode with TF32 off matches the CPU's on "
+                  f"only {shares['tf32 off']:.4f} of the codes")
+
+    # refine (1 kept) and the code pass (2 kept)
+    wavs, wall, counts, errs, _ = _main_path_run(
+        chat, lambda: chat.infer(TEXTS, split_text=False, use_decoder=False,
+                                 params_refine_text=refine_params(),
+                                 params_infer_code=code_params()),
+        "infer use_decoder=False", 3)
+    fold(counts, errs)
+    _check_wavs(wavs)
+    audio_s = sum(w.size for w in wavs) / chat.config.vocos.mel.sample_rate
+    print(f"infer use_decoder=False: 4 texts, wall {wall:.3f} s, audio "
+          f"{audio_s:.2f} s, launches {counts}, kept calls' hidden max-abs "
+          f"{errs}")
+
+
+def phase_engine_wide(chat, kernels, launches):
+    """The wide tier (32 slots on the int8 cache) as the facade builds and
+    routes it: more than 16 requests on a quantized cache go there.  40
+    seeded requests through ``Engine.generate``; every output checked, 32
+    slots live at the peak, and kept calls (the first, and the first after
+    the slots turned over) held against the plain version."""
+    cfg = chat.config.gpt
+    max_new = chat._code_engine_geometry("wide").max_new_tokens
+    check(chat._code_tier_for(40, max_new, 200) == "wide",
+          "40 requests are not routed to the wide tier")
+    eng = chat._engine_for_code("wide")
+    check(eng.ecfg.max_num_seqs == 32 and eng.state.kc.shape[2] == 2560,
+          f"the wide tier is {eng.ecfg.max_num_seqs} slots of "
+          f"{eng.state.kc.shape[2]} rows")
+    eng.warmup()
+    marks = {}
+
+    def want(n, cur, kc):
+        if n == 0:
+            return True
+        if "turned" not in marks and eng.stats["prefills"] > 32:
+            marks["turned"] = n
+            return True
+        return False
+
+    reqs = _engine_requests(cfg, 40)
+    outs, wall, counts, keeper = _engine_run(eng, reqs, want)
+    _check_engine_outputs(outs, reqs, cfg)
+    check(eng.stats["peak_slots"] == 32,
+          f"peak slots {eng.stats['peak_slots']}")
+    check(not eng.has_unfinished() and "turned" in marks,
+          "the wide engine left requests or kept no call after turning over")
+    _fold(kernels, launches, counts, "k2k3", check_kept_calls(
+        chat.packed, chat.gpt_params["norm"], cfg, keeper.kept,
+        "engine wide 32 slots", 2))
+    _print_engine_run("engine wide 32 slots", eng, outs, wall)
+    del chat._code_engines["wide"]
 
 
 def _engine_requests(cfg, n=24):
@@ -2014,6 +2364,7 @@ def main():
 
     phase_build()
     phase_gemv(dev)
+    phase_kv4_append(dev)
     kernels = phase_kernel(dev)
     phase_attention(dev)
     phase_weight_scales(dev)
@@ -2032,7 +2383,7 @@ def main():
         c = Chat(config=chat.config)
         c.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
                       decoder=chat.decoder_params, vocos=chat.vocos_params,
-                      **tiers)
+                      dvae=chat.dvae_params, **tiers)
         return c
 
     # the Generator's main paths: K1, K3, then K4 on K3 and K5 on K6
@@ -2045,7 +2396,10 @@ def main():
                                   profile=variant == "k3")
         _fold(kernels, launches, counts, variant, err)
         del c
+    phase_multi_segment(chat, twin(use_engine=True), kernels, launches)
+    torch.cuda.empty_cache()
     phase_engine(chat, kernels, launches)
+    phase_engine_wide(chat, kernels, launches)
     torch.cuda.empty_cache()
     phase_engine_64(chat, kernels, launches)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,15 @@ port's sampler is handed them step by step.  Then
   near the threshold that one side drops and the other keeps shifts every
   later sample.  The port's output is held to its own strip instead.
 
+Several segments (``split_text=True``, the default, on a text of two
+sentences or a list of two texts) take the auto-clone branch: segment 0 is
+synthesized and its wav encoded to the clone prompt.  The two encoders'
+codes are held to each other on one wav; the teacher-forced run hands the
+port the reference's clone prompt, so every pass stays token-exact, and a
+run without that patch is held to shape and finiteness.
+``use_decoder=False`` decodes equal ids through the DVAE: its waveforms
+agree within 1e-4 of the peak.
+
 The engine route (``use_engine=True``) is held to the Generator route's
 shapes and to the reference's tier routing.  ``kv_bits=0`` is held to the
 results the bf16-cache Generator gave before the int8 cache became the
@@ -35,6 +44,7 @@ import torch
 from chattts_tpu.core import Chat as JChat
 from chattts_tpu_torch import Chat as TChat
 from chattts_tpu_torch.engine import generate as tg
+from chattts_tpu_torch.models.speaker import Speaker
 from torch_port_utils import bridge, forced_tokens, port_config
 
 WAV_RTOL_OF_PEAK = 2e-2
@@ -56,7 +66,8 @@ def chats(tiny_config):
     tchat.load_params(gpt=bridge(jchat.gpt_params),
                       embed=bridge(jchat.embed_params),
                       decoder=bridge(jchat.decoder_params),
-                      vocos=bridge(jchat.vocos_params), device="cpu")
+                      vocos=bridge(jchat.vocos_params),
+                      dvae=bridge(jchat.dvae_params), device="cpu")
     return jchat, tchat
 
 
@@ -88,17 +99,22 @@ def _record_wavs(chat, log):
     chat._decode_to_wavs = decode
 
 
-def test_infer_matches_reference(chats, monkeypatch):
+def _teacher_forced(jchat, tchat, monkeypatch, text, wav_atol_of_peak,
+                    **kw):
+    """The same ``infer(text, **kw)`` on both facades, the port's sampler
+    handed the reference's tokens of every pass (its own draw still runs).
+    Checks that both ran the same passes on token-exact prompts and gave
+    the same ids, and each batch's waveform before the strip within
+    ``wav_atol_of_peak`` of its peak; returns (reference output, port
+    output, the port's raw waveforms, the port's [request, ids] per
+    pass)."""
     monkeypatch.delenv("CHATTTS_PIPELINED_DECODE", raising=False)
     monkeypatch.setenv("CHATTTS_PALLAS_STEP", "0")
-    jchat, tchat = chats
     ref_log, port_log, ref_raw, port_raw = [], [], [], []
     _record(jchat.generator, ref_log)
     _record_wavs(jchat, ref_raw)
-    ref = jchat.infer(TEXTS, split_text=False,
-                      params_refine_text=_params(JChat)[0],
-                      params_infer_code=_params(JChat)[1])
-    assert len(ref_log) == 2  # refine pass, code pass
+    ref = jchat.infer(text, params_refine_text=_params(JChat)[0],
+                      params_infer_code=_params(JChat)[1], **kw)
 
     real_sample = tg.sampling.sample
 
@@ -113,26 +129,140 @@ def test_infer_matches_reference(chats, monkeypatch):
     monkeypatch.setattr(tg.sampling, "sample", teacher)
     _record(tchat.generator, port_log)
     _record_wavs(tchat, port_raw)
-    got = tchat.infer(TEXTS, split_text=False,
-                      params_refine_text=_params(TChat)[0],
-                      params_infer_code=_params(TChat)[1])
+    got = tchat.infer(text, params_refine_text=_params(TChat)[0],
+                      params_infer_code=_params(TChat)[1], **kw)
 
-    assert len(port_log) == 2
+    assert len(port_log) == len(ref_log)
     for (rq, r_ids), (pq, p_ids) in zip(ref_log, port_log):
         np.testing.assert_array_equal(pq.ids, rq.ids)
         np.testing.assert_array_equal(pq.attn_mask, rq.attn_mask)
         np.testing.assert_array_equal(pq.text_mask, rq.text_mask)
-        assert len(p_ids) == len(r_ids) == len(TEXTS)
+        assert len(p_ids) == len(r_ids)
         for g, r in zip(p_ids, r_ids):
             np.testing.assert_array_equal(g, r)
-    (raw_ref,), (raw_got,) = ref_raw, port_raw
-    assert raw_got.shape == raw_ref.shape and raw_ref.shape[1] > 0
-    np.testing.assert_allclose(raw_got, raw_ref,
-                               atol=WAV_RTOL_OF_PEAK * np.abs(raw_ref).max())
+    assert len(port_raw) == len(ref_raw)
+    for raw_got, raw_ref in zip(port_raw, ref_raw):
+        assert raw_got.shape == raw_ref.shape and raw_ref.shape[1] > 0
+        np.testing.assert_allclose(
+            raw_got, raw_ref, atol=wav_atol_of_peak * np.abs(raw_ref).max())
+    return ref, got, port_raw, port_log
+
+
+def test_infer_matches_reference(chats, monkeypatch):
+    jchat, tchat = chats
+    ref, got, (raw_got,), port_log = _teacher_forced(
+        jchat, tchat, monkeypatch, TEXTS, WAV_RTOL_OF_PEAK, split_text=False)
+    assert len(port_log) == 2  # refine pass, code pass
+    assert all(len(ids) == len(TEXTS) for _, ids in port_log)
     assert len(got) == len(ref) == len(TEXTS)
     for g, raw in zip(got, raw_got):
         assert g.dtype == np.float32 and g.size > 0
         np.testing.assert_array_equal(g, raw[np.abs(raw) > 1e-5])
+
+
+# ---------------------------------------------------------------------------
+# several segments: the auto-clone branch (segment 0 synthesized, encoded to
+# codes by the DVAE and used as every segment's prompt), use_decoder=False
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("text", ["First one. Second one. ",
+                                  ["hello world.", "speech on a card"]],
+                         ids=["sentences", "list"])
+def test_split_text_auto_clone_matches_reference(chats, monkeypatch, text):
+    """Default ``split_text=True`` on two segments, teacher-forced.  The
+    clone prompt is the reference's own ``spk_smp`` (the port's encoder is
+    held to it in test_sample_audio_speaker_matches_reference: segment 0's
+    wav differs within 2e-2 of its peak, so its codes may differ), so the
+    prompts of the second pass are token-exact; both batches' waveforms
+    agree before the strip, and the port returns one wav, the stripped
+    batches joined."""
+    jchat, tchat = chats
+    smp = []
+    real_speaker = jchat.sample_audio_speaker
+
+    def record(wav):
+        smp.append(real_speaker(wav))
+        return smp[-1]
+
+    monkeypatch.setattr(jchat, "sample_audio_speaker", record)
+    monkeypatch.setattr(tchat, "sample_audio_speaker",
+                        lambda wav: smp[-1])
+    ref, got, raws, _ = _teacher_forced(jchat, tchat, monkeypatch, text,
+                                        WAV_RTOL_OF_PEAK)
+    assert len(smp) == 1 and len(raws) == 2  # segment 0, then both
+    assert raws[0].shape[0] == 1 and raws[1].shape[0] == 2
+    assert len(got) == len(ref) == 1
+    assert got[0].dtype == np.float32 and np.isfinite(got[0]).all()
+    want = np.concatenate([w[np.abs(w) > 1e-5] for w in raws[1]])
+    np.testing.assert_array_equal(got[0], want)
+
+
+def test_split_text_auto_clone_with_the_ports_own_encoder(chats):
+    """The same default call without any patch: the port clones with its
+    own encoder and returns one finite float32 wav; the caller's params
+    carry the clone prompt (as the reference's do)."""
+    _, tchat = chats
+    refine, code = _params(TChat)
+    wavs = tchat.infer("First one. Second one. ",
+                       params_refine_text=refine, params_infer_code=code)
+    assert len(wavs) == 1 and wavs[0].ndim == 1 and wavs[0].size > 0
+    assert wavs[0].dtype == np.float32 and np.isfinite(wavs[0]).all()
+    assert code.spk_smp is not None and isinstance(code.txt_smp, str)
+    codes = Speaker.decode_prompt(code.spk_smp)
+    assert codes.shape[0] == tchat.config.gpt.num_vq and codes.shape[1] > 0
+
+
+def test_use_decoder_false_matches_reference(chats, monkeypatch):
+    """Codes -> GFSQ embed -> the DVAE's decoder -> Vocos, teacher-forced:
+    the ids are equal, so the waveforms differ only by float32 sums in
+    another order (held to 1e-4 of the peak before the strip), and each
+    row's bucket-padding tail is zero."""
+    jchat, tchat = chats
+    ref, got, (raw_got,), log = _teacher_forced(
+        jchat, tchat, monkeypatch, TEXTS, 1e-4, split_text=False,
+        use_decoder=False)
+    assert len(got) == len(ref) == len(TEXTS)
+    spc = 2 * tchat.config.vocos.hop_length
+    for g, raw, ids in zip(got, raw_got, log[-1][1]):
+        assert g.dtype == np.float32 and g.size > 0 and np.isfinite(g).all()
+        assert ids.shape[0] > 0
+        assert not raw[ids.shape[0] * spc:].any()
+        np.testing.assert_array_equal(g, raw[np.abs(raw) > 1e-5])
+
+
+def test_sample_audio_speaker_matches_reference(chats):
+    """The same wav through both encoders: the (num_vq, T) codes of the
+    spk_smp strings agree on at least 99% (a code may flip only on a
+    rounding boundary: tests/test_torch_dvae_encode.py)."""
+    jchat, tchat = chats
+    rng = np.random.default_rng(0)
+    t = np.arange(12288) / 24000.0
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t)
+           + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    want = Speaker.decode_prompt(jchat.sample_audio_speaker(wav))
+    got = Speaker.decode_prompt(tchat.sample_audio_speaker(wav))
+    assert got.shape == want.shape == (4, (1 + 12288 // 256) // 2)
+    assert (got == want).mean() >= 0.99
+
+
+def test_clone_paths_need_the_dvae(chats):
+    jchat, tchat = chats
+    bare = TChat(config=tchat.config)
+    bare.load_params(gpt=tchat.gpt_params, embed=tchat.embed_params,
+                     decoder=tchat.decoder_params, vocos=tchat.vocos_params,
+                     device="cpu")
+    with pytest.raises(ValueError, match="dvae="):
+        bare.sample_audio_speaker(np.zeros(4096, np.float32))
+    with pytest.raises(ValueError, match="dvae="):
+        bare.infer("First one. Second one. ", skip_refine_text=True,
+                   params_infer_code=_params(TChat)[1])
+    with pytest.raises(ValueError, match="dvae="):
+        bare.infer("hi", use_decoder=False, skip_refine_text=True,
+                   params_infer_code=_params(TChat)[1])
+    # one segment, or a clone prompt given, takes no clone
+    assert len(bare.infer("hi", skip_refine_text=True,
+                          params_infer_code=_params(TChat)[1])) == 1
 
 
 def test_split_text_concatenates_one_wav(chats):
@@ -154,14 +284,8 @@ def test_refine_text_only_and_empty_input(chats):
 
 def test_later_slices_raise(chats):
     _, tchat = chats
-    with pytest.raises(NotImplementedError, match="voice clone"):
-        tchat.infer("First one. Second one. ", split_text=True,
-                    skip_refine_text=True,
-                    params_infer_code=_params(TChat)[1])
-    with pytest.raises(NotImplementedError, match="streaming"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tchat.infer("hi", stream=True)
-    with pytest.raises(NotImplementedError):
-        tchat.sample_audio_speaker(np.zeros(4096, np.float32))
 
 
 def test_speaker_embedding_conditions_the_code_pass(chats):
@@ -287,6 +411,32 @@ def test_use_engine_infer_matches_generator_route_shapes(tiny_config,
     assert isinstance(txt, list) and len(txt) == 2
     with pytest.raises(NotImplementedError, match="streaming"):
         chat.infer("hi", stream=True)
+
+
+def test_use_engine_split_text_auto_clone_shapes(tiny_config, monkeypatch):
+    """Two segments through default ``split_text=True`` on the engine
+    route: segment 0 and then both segments run on the code engine (the
+    clone prompt fits its buckets here), the refine pass on the text
+    engine, and one finite float32 wav comes back, of the Generator
+    route's length to within the code steps kept."""
+    text = "First one. Second one. "
+    plain = _port_chat(tiny_config)
+    want = plain.infer(text, params_refine_text=_params(TChat)[0],
+                       params_infer_code=_params(TChat)[1])
+    chat = _port_chat(tiny_config, use_engine=True)
+    monkeypatch.setattr(chat.generator, "generate", None)  # must not be used
+    code = _params(TChat)[1]
+    wavs = chat.infer(text, params_refine_text=_params(TChat)[0],
+                      params_infer_code=code)
+    assert len(wavs) == len(want) == 1
+    w, p = wavs[0], want[0]
+    assert w.dtype == p.dtype == np.float32 and w.ndim == 1
+    assert w.size > 0 and np.isfinite(w).all()
+    # three segments' worth of 4..16 code steps of 512 samples on both
+    assert 0.2 * p.size <= w.size <= 5 * p.size
+    assert code.spk_smp is not None
+    eng = chat._code_engines["fast"]
+    assert eng.stats["requests_finished"] == 3  # segment 0, then both
 
 
 def test_code_tier_routing(tiny_config):

@@ -67,3 +67,30 @@ def forced_tokens(num_vq: int, infer_text: bool, eos: int, max_new: int,
         seq = seq[:, None] if infer_text else seq
         out[:len(seq), b] = seq
     return out
+
+
+def gfsq_boundary_distance(jparams, x, cfg) -> np.ndarray:
+    """Per (B, T, G*R) code of ``chattts_tpu.models.gfsq.quantize(jparams,
+    x)``: how far the nearest of its bounded values lies from a rounding
+    boundary (a half-integer), f32.  A code the port gives otherwise is a
+    rounding flip only where this is tiny."""
+    from chattts_tpu.models import gfsq
+
+    lv = np.asarray(cfg.levels, np.float32)
+    half_l = (lv - 1.0) * (1.0 + 1e-3) / 2.0
+    offset = np.where(np.asarray(cfg.levels) % 2 == 0, 0.5, 0.0)
+    shift = np.arctanh(offset / half_l)
+    dpg = cfg.dim // cfg.groups
+    scales = gfsq._scales(cfg)
+    out = []
+    for g in range(cfg.groups):
+        gp = jparams["groups"][g]
+        res = np.asarray(jnp.asarray(x[..., g * dpg:(g + 1) * dpg])
+                         @ gp["project_in"]["w"] + gp["project_in"]["b"])
+        for r in range(cfg.residuals):
+            bounded = np.tanh(res / scales[r] + shift) * half_l - offset
+            out.append(np.abs(np.abs(bounded - np.floor(bounded)) - 0.5)
+                       .min(-1))
+            codes, _ = gfsq._fsq_quantize(jnp.asarray(res / scales[r]), cfg)
+            res = res - np.asarray(codes) * scales[r]
+    return np.stack(out, -1)
