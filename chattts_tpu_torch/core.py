@@ -19,9 +19,19 @@ first, its wav encoded to codes by the DVAE encoder
 ``use_decoder=False`` decodes the sampled codes through the DVAE's GFSQ
 embed and its own decoder stack instead of the hiddens.
 
+``infer(stream=True)`` returns a generator of audio chunks, on both routes
+and with ``use_decoder=False``, with the reference's cadence: the first
+``pass_first_n_batches`` chunks of ``stream_batch`` steps are withheld,
+then each yield emits up to ``stream_speed`` samples, then the tail comes
+silence-stripped (``engine/streaming.EmissionPacer``).  Samples are
+vocoded in fixed windows as soon as their receptive cone exists
+(``engine/streaming.py``): on the device from the hiddens there, with one
+window of the next chunk decoded ahead of the chunk's status read when
+``runtime.stream_window_ahead`` (the Generator route), and each window's
+PCM copied to pinned memory one chunk before it is read.
+
 Entry points run on CUDA unless ``device="cpu"`` is passed to :meth:`load`
-or :meth:`load_params`.  Streaming is a later slice of the port and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+or :meth:`load_params`.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from . import codecs
 from .config import Config, load_spk_stat_string
 from .engine.generate import (GenerateRequest, GenerationOutputs, Generator,
                               Interrupt, _round_up)
+from .engine.streaming import (AsyncDeviceWindows, DeviceStreamingDecoder,
+                               EmissionPacer, StreamingDecoder, plan_windows)
 from .models import dvae as dvae_mod
 from .models import embed as embed_mod
 from .models import llama as llama_mod
@@ -235,10 +247,6 @@ class Chat:
         params_refine_text: Optional["Chat.RefineTextParams"] = None,
         params_infer_code: Optional["Chat.InferCodeParams"] = None,
     ):
-        if stream:
-            raise NotImplementedError(
-                "streaming is a later slice of the port (ROADMAP.md, "
-                "Queue 1 item 4: Streaming)")
         params_refine_text = params_refine_text or Chat.RefineTextParams()
         params_infer_code = params_infer_code or Chat.InferCodeParams()
         self.context.set(False)
@@ -255,9 +263,12 @@ class Chat:
             return []
 
         res_gen = self._infer(
-            text, lang, skip_refine_text, refine_text_only, use_decoder,
-            do_text_normalization, do_homophone_replacement, split_text,
-            max_split_batch, params_refine_text, params_infer_code)
+            text, stream, lang, skip_refine_text, refine_text_only,
+            use_decoder, do_text_normalization, do_homophone_replacement,
+            split_text, max_split_batch, params_refine_text,
+            params_infer_code)
+        if stream:
+            return res_gen
         if refine_text_only:
             return next(res_gen)
         stripped = []
@@ -270,7 +281,7 @@ class Chat:
                     np.array([], np.float32)]
         return stripped
 
-    def _infer(self, text, lang, skip_refine_text, refine_text_only,
+    def _infer(self, text, stream, lang, skip_refine_text, refine_text_only,
                use_decoder, do_text_normalization, do_homophone_replacement,
                split_text, max_split_batch, params_refine_text,
                params_infer_code):
@@ -303,13 +314,217 @@ class Chat:
         else:
             batches = [text]
         for batch in batches:
-            yield self._generate_wavs(batch, use_decoder, params_infer_code)
+            if stream:
+                yield from self._stream_batch(batch, use_decoder,
+                                              params_infer_code)
+            else:
+                yield self._generate_wavs(batch, use_decoder,
+                                          params_infer_code)
+
+    @staticmethod
+    def _attempt_stream(gen):
+        """Wrap a generation stream as (restarted, result) pairs.
+
+        ``restarted`` is True when this yield follows an attempt's FINAL
+        output - the empty-generation retry restarted generation, and
+        streaming consumers must drop accumulation from the discarded
+        attempt (the retry only fires when some sequence produced
+        nothing)."""
+        saw_final = False
+        for result in gen:
+            yield saw_final, result
+            saw_final = not result.partial
+
+    def _stream_batch(self, batch, use_decoder, params):
+        """Streaming synthesis with incremental windowed vocoding.
+
+        The reference re-decodes ALL accumulated hidden states on every
+        yield (core.py:475-503, O(T^2) total); here a StreamingDecoder
+        finalizes samples as soon as their conv receptive cone is complete,
+        so each yield costs one fixed-size window.  When the generation
+        provides hiddens on the device, the window slicing, padding and
+        vocoding run there and only finished samples go to the host
+        (DeviceStreamingDecoder).  Emission cadence keeps the reference
+        semantics: withhold the first ``pass_first_n_batches`` yields, then
+        emit ``stream_speed``-sample windows, then flush the
+        silence-stripped tail.
+        """
+        if not use_decoder:
+            self._dvae("use_decoder=False")
+        ctx, guard, window = plan_windows(
+            self.config.decoder.stack if use_decoder
+            else self.config.dvae.decoder,
+            self.config.vocos, params.stream_batch)
+        fg = self.config.runtime.stream_first_guard
+        fg = None if fg is None else min(fg, guard)
+        sd = None
+        # Defer PCM materialization by one chunk (AsyncDeviceWindows): the
+        # window decode and its host copy are enqueued at consume time but
+        # read on the NEXT yield, so both overlap the next chunk's steps.
+        # A constant one-chunk shift in emission latency, not a rate
+        # change; the windows before the first emission (and the final
+        # flush) are read at once.  The deferred swap and the reference
+        # cadence both live in EmissionPacer (shared with
+        # TTSService.synthesize_stream).
+        defer = self.config.runtime.stream_window_ahead
+        wire = self.config.runtime.wire_int16
+
+        def _mk_pacer():
+            return EmissionPacer(len(batch), params.pass_first_n_batches,
+                                 params.stream_speed, wire)
+
+        def _mk_device_sd():
+            return self._device_stream_decoder(len(batch),
+                                               params.stream_batch,
+                                               async_windows=defer)
+
+        # window speculation: right after the Generator ENQUEUES a chunk's
+        # steps, enqueue the vocode of the window that chunk will allow and
+        # start its host copy, before the host waits on the chunk's status.
+        # Fires only on the Generator route; the callback sees the full
+        # hidden buffer.
+        def on_dispatch(st, hi):
+            nonlocal sd
+            if not use_decoder:
+                return
+            if sd is None:
+                sd = _mk_device_sd()
+            if isinstance(sd, DeviceStreamingDecoder):
+                if hi >= params.max_new_token:
+                    # provably the final chunk: speculate the final flush
+                    # (right-aligned tail windows included) instead of the
+                    # mid-stream plan
+                    sd.speculate_final(st.hiddens, hi, st.end_idx)
+                else:
+                    sd.speculate_window(st.hiddens, hi, st.end_idx)
+
+        if not self.config.runtime.stream_window_ahead:
+            on_dispatch = None
+        pacer = _mk_pacer()
+        last = None  # (device feats, n) or np items for the tail flush
+        # dispatch-ahead after the first two chunks: the first emission's
+        # chunks stay synchronous, later ones overlap the status wait with
+        # the next chunk's steps
+        for restarted, result in self._attempt_stream(
+                self._infer_code(batch, True, use_decoder, params,
+                                 speculate=True, speculate_from=2,
+                                 on_dispatch=on_dispatch)):
+            if restarted:
+                sd = None
+                pacer = _mk_pacer()  # reapply the first-yields suppression
+            final = bool(result.finished.all())
+            if use_decoder and result.hiddens_dev is not None:
+                if sd is None:
+                    sd = _mk_device_sd()
+                last = ("dev", result.hiddens_dev, result.hid_n,
+                        result.end_dev)
+                chunk = sd.update_dev(result.hiddens_dev, result.hid_n,
+                                      final=final, end_dev=result.end_dev)
+            else:
+                if sd is None:
+                    sd = StreamingDecoder(
+                        self._stream_decode_fn(use_decoder), len(batch),
+                        self.config.gpt.hidden_size if use_decoder
+                        else self.config.gpt.num_vq,
+                        ctx=ctx, guard=guard, window=window,
+                        int_features=not use_decoder, first_guard=fg)
+                items = (result.materialize_hiddens() if use_decoder
+                         else result.ids)
+                last = ("np", items, None, None)
+                chunk = sd.update(items, final=final)
+            result.destroy()
+            emit = pacer.push(chunk, final=final)
+            if emit is not None:
+                yield emit
+        # tail flush: whatever remains, silence-stripped (core.py:501-503)
+        tail = None
+        if sd is not None and sd.emitted < sd.available and last is not None:
+            kind, payload, n, end_dev = last
+            tail = (sd.update_dev(payload, n, final=True, end_dev=end_dev)
+                    if kind == "dev"
+                    else sd.update(payload, final=True))
+        yield pacer.flush(tail)
+
+    def _device_stream_decoder(self, batch: int, stream_batch: int,
+                               async_windows: bool = False):
+        """Device streaming decoder with the facade's geometry recipe
+        (plan_windows receptive cones, clamped first guard, wire scaling).
+        The ONE construction shared by _stream_batch and
+        TTSService.synthesize_stream - keep them from drifting.
+
+        ``async_windows``: return the AsyncDeviceWindows variant whose
+        update_dev yields sample slices with host copies in flight instead
+        of materialized arrays (int16 wire scaling then becomes the
+        caller's job at materialization)."""
+        ctx, guard, window = plan_windows(self.config.decoder.stack,
+                                          self.config.vocos, stream_batch)
+        fg = self.config.runtime.stream_first_guard
+        cls = AsyncDeviceWindows if async_windows else DeviceStreamingDecoder
+        return cls(
+            self._device_window_fn(window), batch,
+            self.config.gpt.hidden_size,
+            wire_int16=self.config.runtime.wire_int16 and not async_windows,
+            ctx=ctx, guard=guard, window=window,
+            first_guard=None if fg is None else min(fg, guard))
+
+    def _stream_decode_fn(self, use_decoder: bool):
+        """Host-window decode of the plain StreamingDecoder: (B, W, C)
+        hiddens (float32) or codes (int32) -> (B, n) float32 samples."""
+        cfg = self.config
+
+        def decode(win: np.ndarray) -> np.ndarray:
+            x = torch.from_numpy(win).to(self.device)
+            mel = (dvae_mod.decode_from_hidden(self.decoder_params, x,
+                                               cfg.decoder)
+                   if use_decoder
+                   else dvae_mod.decode_from_indices(self.dvae_params, x,
+                                                     cfg.dvae))
+            return vocos_mod.decode(self.vocos_params, mel,
+                                    cfg.vocos).cpu().numpy()
+
+        return decode
+
+    def _device_window_fn(self, window: int):
+        """Device-side window decode for streaming: slice/pad/mask/roll the
+        hidden window, run the mel decoder + vocoder, and (optionally)
+        quantize - all on the device; only the finished sample window goes
+        to the host.  Semantics mirror StreamingDecoder._decode_window
+        exactly.  When a per-row ``end`` (generated lengths, device (B,))
+        is supplied, hidden positions at/after a row's end are zeroed
+        before the convs - the generation buffer keeps accumulating
+        garbage hiddens for finished rows, and the one-shot decode
+        (_device_decode) zero-masks the same region.  Plain torch ops,
+        enqueued on the current stream."""
+        cfg = self.config
+        wire_int16 = cfg.runtime.wire_int16
+
+        def call(feats, lo, hi, pad_left, end=None):
+            sl = feats[:, lo:lo + window]
+            if sl.shape[1] < window:  # the window runs past the buffer
+                sl = torch.nn.functional.pad(
+                    sl, (0, 0, 0, window - sl.shape[1]))
+            t = torch.arange(window, device=feats.device)
+            keep = (t < (hi - lo))[None, :]
+            if end is not None:
+                keep = keep & ((lo + t)[None, :] < end[:, None])
+            sl = torch.where(keep[:, :, None], sl, 0.0)
+            sl = torch.roll(sl, pad_left, dims=1)
+            sl = torch.where((t >= pad_left)[None, :, None], sl, 0.0)
+            mel = dvae_mod.decode_from_hidden(self.decoder_params, sl,
+                                              cfg.decoder)
+            wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
+            if wire_int16:
+                return torch.clamp(wav * 32767.0, -32767,
+                                   32767).to(torch.int16)
+            return wav
+
+        return call
 
     def _generate_wavs(self, batch: List[str], use_decoder: bool,
                        params: "Chat.InferCodeParams") -> np.ndarray:
         if not use_decoder:
             self._dvae("use_decoder=False")
-        result = next(self._infer_code(batch, params, use_decoder))
+        result = next(self._infer_code(batch, False, use_decoder, params))
         wavs = self._decode_to_wavs(result, use_decoder)
         result.destroy()
         return wavs
@@ -523,10 +738,12 @@ class Chat:
                 kv_bits=self.kv_bits)
         return self._text_engine
 
-    def _code_requests(self, params: "Chat.InferCodeParams", inputs):
+    def _code_requests(self, text, params: "Chat.InferCodeParams",
+                       on_tokens=None, inputs=None):
         from .engine.batching import EngineRequest
 
-        ids, attn, tmask, temp, spk = inputs
+        ids, attn, tmask, temp, spk = (inputs if inputs is not None
+                                       else self._code_inputs(text, params))
         reqs = []
         for b in range(ids.shape[0]):
             n = int(attn[b].sum())
@@ -539,21 +756,108 @@ class Chat:
                 min_new=params.min_new_token,
                 max_new=params.max_new_token, spk_vec=spk,
                 seed=params.manual_seed,
-                ensure_non_empty=params.ensure_non_empty))
+                ensure_non_empty=params.ensure_non_empty,
+                on_tokens=on_tokens))
         return reqs
 
-    def _infer_code_engine(self, params: "Chat.InferCodeParams", inputs,
-                           engine):
-        """Engine-backed code generation (non-streaming): the outputs keep
-        their hiddens on the device and feed the device decode path."""
-        from .engine.batching import outputs_to_generation
+    def _infer_code_engine(self, text, params: "Chat.InferCodeParams",
+                           stream: bool = False, inputs=None, engine=None,
+                           device_stream: bool = True):
+        """Engine-backed code generation, streaming included: slot
+        callbacks accumulate per-request increments and each engine chunk
+        yields cumulative partials in the Generator's output format.
 
-        outs = engine.generate(self._code_requests(params, inputs),
-                               context=self.context)
-        yield outputs_to_generation(outs)
+        Non-streaming outputs keep their hiddens on the device and feed the
+        device decode path.  ``device_stream``: streaming requests keep
+        their hidden states on the device (``stream_hiddens_dev``: the
+        engine hands a copy of each row's whole buffer) and the partials
+        carry batched ``hiddens_dev``/``end_dev``, so the window vocode
+        runs on the device and only PCM goes to the host."""
+        eng = engine if engine is not None else self._engine_for_code()
+        if not stream:
+            from .engine.batching import outputs_to_generation
 
-    def _infer_code(self, text: List[str], params: "Chat.InferCodeParams",
-                    use_decoder: bool = True):
+            outs = eng.generate(self._code_requests(text, params,
+                                                    inputs=inputs),
+                                context=self.context)
+            yield outputs_to_generation(outs)
+            return
+
+        B = len(text)
+        D = self.config.gpt.hidden_size
+        acc_ids: List[List[np.ndarray]] = [[] for _ in text]
+        acc_hid: List[List[np.ndarray]] = [[] for _ in text]
+        cum_dev: List[Optional[torch.Tensor]] = [None] * B
+        done = [False] * B
+        index = {}
+
+        def on_tokens(rid, new_ids, new_hid, finished):
+            b = index[rid]
+            if new_ids is not None:  # None = dropped by interrupt
+                acc_ids[b].append(np.asarray(new_ids))
+            if new_hid is not None:
+                if device_stream:
+                    # full (max_new, D) device row; true length = id count
+                    cum_dev[b] = new_hid
+                else:
+                    acc_hid[b].append(np.asarray(new_hid))
+            done[b] = done[b] or finished
+
+        reqs = self._code_requests(text, params, on_tokens=on_tokens,
+                                   inputs=inputs)
+        for r in reqs:
+            r.stream_hiddens_dev = device_stream
+        index.update({r.request_id: b for b, r in enumerate(reqs)})
+        for r in reqs:
+            eng.add_request(r)
+        Z = np.zeros((0, self.config.gpt.num_vq), np.int32)
+        Zh = np.zeros((0, D), np.float32)
+
+        def partial_out():
+            out_ids = [np.concatenate(a) if a else Z for a in acc_ids]
+            fin = np.asarray(done)
+            if device_stream:
+                # the FULL fixed-shape (max_new, D) slot rows stacked on
+                # the device; rows beyond a request's own count are masked
+                # by end_dev.  ``n_valid`` is bounded by the SLOWEST
+                # UNFINISHED request: with staggered admission (more
+                # requests than slots, or preemption) a late row's content
+                # for positions [0, k) only appears once it is admitted,
+                # and the windowed walk never revisits positions behind its
+                # emission cursor - consuming past a lagging row would bake
+                # its not-yet-generated positions in as silence.  Lockstep
+                # batches lose nothing: all unfinished rows share one count.
+                lens = [sum(a.shape[0] for a in acc) for acc in acc_ids]
+                n_safe = min((n for n, d in zip(lens, done) if not d),
+                             default=max(lens))
+                Tbuf = next((h.shape[0] for h in cum_dev if h is not None),
+                            0)
+                hb = (torch.stack([
+                    torch.zeros((Tbuf, D), dtype=torch.float32,
+                                device=self.device) if h is None else h
+                    for h in cum_dev]) if Tbuf
+                    else torch.zeros((B, 0, D), dtype=torch.float32,
+                                     device=self.device))
+                return GenerationOutputs(
+                    ids=out_ids, finished=fin, hiddens_dev=hb,
+                    end_dev=torch.as_tensor(lens, dtype=torch.long,
+                                            device=self.device),
+                    n_valid=n_safe, partial=not all(done))
+            return GenerationOutputs(
+                ids=out_ids,
+                hiddens=[np.concatenate(a) if a else Zh for a in acc_hid],
+                finished=fin, partial=not all(done))
+
+        while eng.has_unfinished():
+            if self.context.get():
+                eng.interrupt()
+                break
+            eng.step()  # the short serving quantum: live listeners
+            yield partial_out()
+
+    def _infer_code(self, text: List[str], stream: bool, return_hidden: bool,
+                    params: "Chat.InferCodeParams", speculate: bool = False,
+                    speculate_from: int = 0, on_dispatch=None):
         cfg = self.config.gpt
         inputs = self._code_inputs(text, params)
         ids, attn, tmask, temperature, spk_vec = inputs
@@ -563,7 +867,9 @@ class Chat:
             if plen <= cap:
                 eng = self._engine_for_code(self._code_tier_for(
                     len(text), params.max_new_token, plen))
-                return self._infer_code_engine(params, inputs, eng)
+                return self._infer_code_engine(
+                    text, params, stream=stream, inputs=inputs, engine=eng,
+                    device_stream=return_hidden)
             # a prompt longer than the engine's prompt capacity falls back
             # to the one-shot generator, which buckets any length
             self.logger.info(
@@ -577,5 +883,9 @@ class Chat:
             max_new=params.max_new_token, min_new=params.min_new_token,
             spk_vec=spk_vec, spk_emb_ids=self.tokenizer.spk_emb_ids,
             seed=params.manual_seed, ensure_non_empty=params.ensure_non_empty,
-            return_hidden=use_decoder)
+            stream_batch=params.stream_batch if stream else 0,
+            return_hidden=return_hidden, speculate=speculate,
+            speculate_from=speculate_from,
+            on_dispatch=on_dispatch)  # the Generator's only: the engine
+        # route above returns earlier (its windows are decoded at harvest)
         return self.generator.generate(req, self.context)

@@ -91,6 +91,18 @@
    slots live at its peak (K2+K6+K4, timed on a call of that run); and
    ``Chat.infer`` with ``use_engine=True, weight_bits=8`` (K2+K3+K4).
 
+7. Streaming and serving, each a main path with kept calls held to the
+   plain version: ``Chat.infer(stream=True)`` on the 4 texts at 256 new
+   tokens with the default cadence, on the Generator (K3) and on the
+   engine route (K2+K3), and with ``use_decoder=False``
+   (``phase_stream``): every chunk checked, the codes equal to a
+   non-streamed run's, the samples to the one-shot decode of the same
+   hiddens within the windowing tolerance, ``stream_window_ahead`` off
+   bit-equal; time to the first chunk, gaps, audio s per wall s, busy
+   share.  Then a ``TTSService`` on the capacity tier under 8 streaming
+   and 8 blocking requests at once, an aborted stream, and the port's
+   HTTP server on 127.0.0.1 (``phase_serving``).
+
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``.
@@ -227,10 +239,17 @@ def _device_profile(fn):
         key = key.replace("(anonymous namespace)::", "")
         return key.removeprefix("void ").split("(")[0].strip()[:60]
 
-    rows = [(name(e.key), e.count, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[2])
+    # the profiler's raw events, summed by kernel: the same counts and
+    # device time as key_averages(), whose per-op tables are slow to build
+    # for a run of tens of thousands of launches
+    totals = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t = totals[name(e.name())]
+            t[0] += 1
+            t[1] += e.duration_ns() / 1e3
+    rows = sorted(((k, n, us) for k, (n, us) in totals.items()),
+                  key=lambda r: -r[2])
     return sum(r[2] for r in rows) / 1e6, wall, rows
 
 
@@ -1489,9 +1508,15 @@ def phase_kv4_append(dev):
         case = _kv4_append_inputs(cfg, B, 2560, dev, 40 + B)
         live = _kv4_append_bytes(case, cfg, f"B {B}")
         us = 1e3 * _device_ms(lambda: ds.kv4_append(*case, cfg), iters=100)
-        events = _kernel_events(lambda: [ds.kv4_append(*case, cfg)
-                                         for _ in range(20)])
-        kern = [t for n, t in events if n.startswith("kv4_append_kernel")]
+        # a profile can miss a launch at its start: profile again, up to
+        # three times, until it holds all 20
+        for _ in range(3):
+            events = _kernel_events(lambda: [ds.kv4_append(*case, cfg)
+                                             for _ in range(20)])
+            kern = [t for n, t in events
+                    if n.startswith("kv4_append_kernel")]
+            if len(kern) == 20:
+                break
         check(len(kern) == 20, f"profiled {len(kern)} of 20 kv4 appends")
         prof_us = sum(kern) / len(kern)
         plain_us = 1e3 * _device_ms(lambda: ds.kv4_append_plain(*case, cfg),
@@ -1599,6 +1624,7 @@ class Keeper:
         return x
 
 
+SAMPLES_PER_STEP = 512  # one code step: 2 mel frames of hop 256
 TEXTS = ["Hello from the port.", "The quick brown fox.",
          "Speech on a graphics card.", "One more short sentence."]
 
@@ -1699,8 +1725,10 @@ def _main_path_run(c, run, title, at_least, later=48):
     """``run()`` on the facade ``c`` as a main path: the launch counts set
     to 0 just before and read just after, ``decode_step`` (the Generator's
     and the engine's) replaced by a Keeper that keeps the first call of
-    each pass (a Generator's or an Engine's ``generate``) and the call
-    ``later`` steps on, and the decode steps the passes report counted.
+    each pass (a Generator's ``generate``, an Engine's ``generate``, or a
+    streamed engine pass of ``_infer_code_engine``) and the call ``later``
+    steps on, and the decode steps the passes report counted (a streamed
+    Generator pass: its last output's).
     Every call must have launched one kernel, the launches cover the
     steps, at least ``at_least`` calls are kept, and the kept calls are
     held to the plain version variant by variant.  Returns (the result,
@@ -1720,11 +1748,16 @@ def _main_path_run(c, run, title, at_least, later=48):
         return keep
 
     gen_generate, eng_generate = c.generator.generate, batching.Engine.generate
+    eng_stream = c._infer_code_engine
 
     def gen_counted(req, context=None):
+        # a pass's steps are its latest output's (a streamed pass yields
+        # partials; the facade reads a one-shot pass's first output only)
         state["n"] = 0
+        steps.append(0)
+        i = len(steps) - 1
         for out in gen_generate(req, context):
-            steps.append(out.steps)
+            steps[i] = out.steps
             yield out
 
     def eng_counted(eng, requests, context=None):
@@ -1734,8 +1767,23 @@ def _main_path_run(c, run, title, at_least, later=48):
         steps.append(eng.stats["steps_launched"] - before)
         return outs
 
+    def eng_stream_counted(text, params, stream=False, engine=None, **kw):
+        if not stream:  # Engine.generate counts it
+            yield from eng_stream(text, params, stream=stream, engine=engine,
+                                  **kw)
+            return
+        state["n"] = 0
+        before = engine.stats["steps_launched"]
+        steps.append(0)
+        i = len(steps) - 1
+        for out in eng_stream(text, params, stream=stream, engine=engine,
+                              **kw):
+            steps[i] = engine.stats["steps_launched"] - before
+            yield out
+
     keeper = Keeper(want)
     c.generator.generate, batching.Engine.generate = gen_counted, eng_counted
+    c._infer_code_engine = eng_stream_counted
     gen_mod.k1.decode_step = keeper  # the engine's step_mod is this module
     decode_step.launches = 0
     torch.cuda.synchronize()
@@ -1746,7 +1794,7 @@ def _main_path_run(c, run, title, at_least, later=48):
     finally:
         gen_mod.k1.decode_step = decode_step
         batching.Engine.generate = eng_generate
-        del c.generator.generate
+        del c.generator.generate, c._infer_code_engine
     wall = time.perf_counter() - t0
     counts = {v: n for v, n in decode_step.variant_launches.items() if n}
     launched = sum(counts.values())
@@ -1877,6 +1925,450 @@ def phase_multi_segment(chat, engine_chat, kernels, launches):
     print(f"infer use_decoder=False: 4 texts, wall {wall:.3f} s, audio "
           f"{audio_s:.2f} s, launches {counts}, kept calls' hidden max-abs "
           f"{errs}")
+
+
+STREAM_TOL = 2e-4       # window vs one-shot decode past the first window
+FIRST_WINDOW_SNR_DB = 60.0  # the first window, emitted under first_guard
+
+
+def _gaps(times):
+    """(p50, max) of the gaps between successive chunk arrivals, s."""
+    import numpy as np
+
+    if len(times) < 2:
+        return 0.0, 0.0
+    d = np.diff(np.asarray(times))
+    return float(np.median(d)), float(d.max())
+
+
+def _streamed(c, run):
+    """``run()`` returns a stream; consume it and return (chunks, arrival
+    seconds of each chunk after the call, the code pass's ids, the
+    decoders the facade made with their ``emitted`` after each update)."""
+    import numpy as np
+    import torch
+
+    codes, made = [], []
+    infer_code, mk_sd = c._infer_code, c._device_stream_decoder
+
+    def recording_infer_code(*a, **k):
+        for out in infer_code(*a, **k):
+            codes[:] = [np.array(i) for i in out.ids]
+            yield out
+
+    def recording_sd(*a, **k):
+        sd = mk_sd(*a, **k)
+        sd.trace, upd = [], sd.update_dev
+
+        def update_dev(*a2, **k2):
+            out = upd(*a2, **k2)
+            sd.trace.append(sd.emitted)
+            return out
+
+        sd.update_dev = update_dev
+        made.append(sd)
+        return sd
+
+    c._infer_code, c._device_stream_decoder = (recording_infer_code,
+                                               recording_sd)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, times = [], []
+        for ch in run():
+            times.append(time.perf_counter() - t0)
+            chunks.append(ch)
+    finally:
+        del c._infer_code, c._device_stream_decoder
+    return chunks, times, codes, made
+
+
+def _exact_decode(c, hid, end):
+    """The one-shot decode of exactly the kept positions (no bucket pad,
+    no waveform tail zeroed): what the windows must reassemble to."""
+    import torch
+    from chattts_tpu_torch.models import dvae as dvae_mod
+    from chattts_tpu_torch.models import vocos as vocos_mod
+
+    t = torch.arange(hid.shape[1], device=hid.device)
+    mel = dvae_mod.decode_from_hidden(
+        c.decoder_params, hid * (t[None, :] < end[:, None])[..., None],
+        c.config.decoder)
+    return vocos_mod.decode(c.vocos_params, mel, c.config.vocos).cpu().numpy()
+
+
+def _check_chunks(chunks, B, stream_speed, where):
+    import numpy as np
+
+    check(len(chunks) >= 2, f"{where}: {len(chunks)} chunks")
+    for i, ch in enumerate(chunks):
+        check(isinstance(ch, np.ndarray) and ch.dtype == np.float32
+              and ch.ndim == 2 and ch.shape[0] == B
+              and bool(np.isfinite(ch).all()),
+              f"{where}: chunk {i} is {getattr(ch, 'shape', ch)} "
+              f"{getattr(ch, 'dtype', '')}")
+        if i < len(chunks) - 1:
+            check(0 < ch.shape[1] <= stream_speed,
+                  f"{where}: chunk {i} has {ch.shape[1]} samples")
+
+
+def _first_code_difference(got, want):
+    """'row b, step t: streamed ... one-shot ...' for the first step where
+    two runs' codes differ, or None."""
+    import numpy as np
+
+    for b, (g, w) in enumerate(zip(got, want)):
+        n = min(len(g), len(w))
+        bad = np.nonzero((g[:n] != w[:n]).any(-1))[0]
+        if bad.size:
+            t = int(bad[0])
+            return f"row {b}, step {t}: streamed {g[t]} one-shot {w[t]}"
+        if len(g) != len(w):
+            return f"row {b}: {len(g)} steps streamed, {len(w)} one-shot"
+    if len(got) != len(want):
+        return f"{len(got)} rows streamed, {len(want)} one-shot"
+    return None
+
+
+def phase_stream(chat, engine_chat, kernels, launches):
+    """``Chat.infer(stream=True)`` on the 4 texts at 256 new tokens with the
+    default cadence (``stream_batch`` 24, ``stream_speed`` 12000,
+    ``pass_first_n_batches`` 2), refine pass skipped, on the Generator (K3)
+    and on the engine route (K2+K3): a first call (the window shapes
+    cold) and a warm one run as a main path (_main_path_run: the first and
+    the 49th step of the pass kept and held to the plain version).  Checks
+    every chunk (float32, finite, (4, n), at most ``stream_speed`` samples
+    before the flush); the streamed codes equal a non-streamed ``infer``'s
+    with the same seed on the same route (else the first differing step is
+    reported); the stream's length and samples equal the one-shot decode of
+    the same hiddens (no bucket pad) within the reference's windowing
+    tolerance (2e-4 past the first emitted window, 60 dB over it); on the
+    Generator, ``stream_window_ahead`` off gives the same samples; then
+    ``use_decoder=False`` streams on the Generator.  Prints the time to the
+    first chunk (cold, warm), the gaps between chunks, audio seconds per
+    wall second, and the card's busy share in one profiled call."""
+    import numpy as np
+    from chattts_tpu_torch import Chat
+
+    sr = chat.config.vocos.mel.sample_rate
+
+    def code_params():
+        return Chat.InferCodeParams(max_new_token=256, min_new_token=64,
+                                    manual_seed=21, show_tqdm=False)
+
+    def stream(c, **kw):
+        return lambda: c.infer(TEXTS, stream=True, split_text=False,
+                               skip_refine_text=True,
+                               params_infer_code=code_params(), **kw)
+
+    for route, c in (("generator", chat), ("engine", engine_chat)):
+        title = f"stream ({route})"
+        p = code_params()
+        cold, cold_t, _, _ = _streamed(c, stream(c))
+        _check_chunks(cold, 4, p.stream_speed, f"{title}, first call")
+        (chunks, times, codes, made), wall, counts, errs, steps = \
+            _main_path_run(c, lambda: _streamed(c, stream(c)), title, 2)
+        for v in counts:
+            _fold(kernels, launches, {v: counts[v]}, v, errs[v])
+        _check_chunks(chunks, 4, p.stream_speed, title)
+        check(sum(ch.shape[1] for ch in chunks)
+              == sum(ch.shape[1] for ch in cold),
+              f"{title}: the first and the warm call differ in length")
+        # the same request, not streamed: its codes and its hiddens
+        got = {}
+        decode = c._decode_to_wavs
+
+        def capture(result, use_decoder):
+            got["codes"] = [np.array(i) for i in result.ids]
+            got["hid"], got["end"] = result.hiddens_dev, result.end_dev
+            return decode(result, use_decoder)
+
+        c._decode_to_wavs = capture
+        try:
+            c.infer(TEXTS, split_text=False, skip_refine_text=True,
+                    params_infer_code=code_params())
+        finally:
+            del c._decode_to_wavs
+        diff = _first_code_difference(codes, got["codes"])
+        check(diff is None, f"{title}: streamed codes differ from the "
+              f"non-streamed run's at {diff}")
+        n_max = max(len(x) for x in codes)
+        exact = _exact_decode(c, got["hid"][:, :n_max], got["end"])
+        full = (2 * n_max - 1) * (SAMPLES_PER_STEP // 2)
+        check(exact.shape[1] == full, f"{title}: one-shot decode "
+              f"{exact.shape}, expected {full} samples")
+        stream_wav = np.concatenate(chunks, axis=1)
+        # the last chunk is the flush: what was left, its columns silent
+        # in every row stripped (core.py:501-503)
+        m = stream_wav.shape[1] - chunks[-1].shape[1]
+        rest = exact[:, m:]
+        ref = np.concatenate(
+            [exact[:, :m], rest[:, (np.abs(rest) > 1e-5).any(0)]], axis=1)
+        check(ref.shape == stream_wav.shape,
+              f"{title}: {stream_wav.shape[1]} samples streamed, the "
+              f"one-shot decode has {full}, {ref.shape[1]} after the "
+              f"flush's strip")
+        first = made[0].trace
+        e1 = next(e for e in first if e) * SAMPLES_PER_STEP
+        err = np.abs(stream_wav - ref)
+        snr = 10 * np.log10(float((ref[:, :e1] ** 2).sum())
+                            / max(float(((stream_wav[:, :e1]
+                                          - ref[:, :e1]) ** 2).sum()), 1e-30))
+        late = float(err[:, e1:].max())
+        print(f"{title}: {len(chunks)} chunks, {stream_wav.shape[1]} samples "
+              f"a row (one-shot {full}), peak {float(np.abs(ref).max()):.3e}; "
+              f"first window {e1} samples at {snr:.1f} dB, after it max-abs "
+              f"{late:.3e}; codes equal to the non-streamed run's "
+              f"({n_max} steps)")
+        check(late <= STREAM_TOL, f"{title}: the stream differs from the "
+              f"one-shot decode by {late} past the first window")
+        check(snr >= FIRST_WINDOW_SNR_DB,
+              f"{title}: the first window at {snr:.1f} dB")
+        gap50, gapmax = _gaps(times)
+        audio_s = stream_wav.shape[1] * 4 / sr
+        print(f"{title}: first chunk {cold_t[0]:.3f} s on the first call, "
+              f"{times[0]:.3f} s warm; gaps between chunks p50 "
+              f"{gap50:.3f} s, max {gapmax:.3f} s; wall {wall:.3f} s, "
+              f"steps {steps}, audio {audio_s:.2f} s (4 rows), audio s / "
+              f"wall s {audio_s / wall:.3f}; launches {counts}, kept "
+              f"calls' hidden max-abs {errs}")
+        if route == "generator":
+            device_s, prof_wall, rows = _device_profile(
+                lambda: list(stream(c)()))
+            _print_profile(f"{title} profile", device_s, rows)
+            print(f"{title}: card busy {device_s:.3f} s of the profiled "
+                  f"call's {prof_wall:.3f} s wall "
+                  f"({100 * device_s / prof_wall:.1f}%)")
+            twin = Chat(config=c.config.with_runtime(
+                stream_window_ahead=False))
+            twin.load_params(gpt=c.gpt_params, embed=c.embed_params,
+                             decoder=c.decoder_params, vocos=c.vocos_params,
+                             dvae=c.dvae_params, device=c.device)
+            off, _, off_codes, _ = _streamed(twin, stream(twin))
+            off_wav = np.concatenate(off, axis=1)
+            check(_first_code_difference(off_codes, codes) is None
+                  and off_wav.shape == stream_wav.shape
+                  and np.array_equal(off_wav, stream_wav),
+                  f"{title}: stream_window_ahead off gives other samples "
+                  f"({off_wav.shape} against {stream_wav.shape})")
+            print(f"{title}: stream_window_ahead off: {len(off)} chunks "
+                  f"(on: {len(chunks)}), the same {off_wav.shape[1]} "
+                  f"samples a row bit for bit")
+            del twin
+    (chunks, times, codes, _), wall, counts, errs, _ = _main_path_run(
+        chat, lambda: _streamed(chat, stream(chat, use_decoder=False)),
+        "stream use_decoder=False", 2)
+    for v in counts:
+        _fold(kernels, launches, {v: counts[v]}, v, errs[v])
+    _check_chunks(chunks, 4, code_params().stream_speed,
+                  "stream use_decoder=False")
+    n = sum(ch.shape[1] for ch in chunks)
+    n_max = max(len(x) for x in codes)
+    check(n <= (2 * n_max - 1) * (SAMPLES_PER_STEP // 2),
+          f"stream use_decoder=False: {n} samples for {n_max} steps")
+    print(f"stream use_decoder=False: {len(chunks)} chunks, {n} samples a "
+          f"row, first chunk {times[0]:.3f} s, wall {wall:.3f} s, launches "
+          f"{counts}, kept calls' hidden max-abs {errs}")
+
+
+SERVING_THREADS = 8     # streams, and as many blocking requests
+
+
+def _quantiles(xs):
+    import numpy as np
+
+    v = np.sort(np.asarray(xs))
+    return float(v[len(v) // 2]), float(v[min(len(v) - 1,
+                                              int(0.95 * len(v)))])
+
+
+def phase_serving(chat, kernels, launches):
+    """``TTSService`` over ``chat`` (engine route, capacity tier: 16 slots
+    on the int8 cache), built with its CUDA default (engine warm-up and one
+    warm-up stream).  Load: 8 threads each run ``synthesize_stream`` while
+    8 threads each run ``synthesize`` (refine pass included), every wait
+    bounded.  Checks every output non-empty and finite, the peak occupancy
+    at least 2 slots, that launches cover the engine's steps and kept calls
+    (the first step of the load and the one 48 steps on) against the plain
+    version.  Then an aborted stream frees its slot and a later request is
+    admitted and served, and the port's HTTP server on 127.0.0.1 answers
+    ``/health``, ``/generate_voice`` and a streamed ``/v1/audio/speech``.
+    Prints the time to the first chunk (p50, p95), requests per second and
+    the peak slots."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from chattts_tpu_torch import Chat
+    from chattts_tpu_torch.engine import generate as gen_mod
+    from chattts_tpu_torch.examples import api_server
+    from chattts_tpu_torch.ops.decode_step import decode_step
+    from chattts_tpu_torch.serving import TTSService
+    from chattts_tpu_torch.utils.audio import read_wav_stream
+
+    t0 = time.perf_counter()
+    svc = TTSService(chat, timeout=120.0)
+    eng = chat._engine_for_code()
+    check(eng.ecfg.max_num_seqs == 16 and svc.max_concurrent_slots == 0,
+          f"the service's code engine has {eng.ecfg.max_num_seqs} slots")
+    print(f"serving: service built and warmed in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def code(seed, max_new=192):
+        return Chat.InferCodeParams(max_new_token=max_new, min_new_token=64,
+                                    manual_seed=seed, show_tqdm=False)
+
+    refine = Chat.RefineTextParams(max_new_token=32, min_new_token=4,
+                                   manual_seed=5, show_tqdm=False)
+    results, errors = {}, []
+
+    def streamer(i):
+        try:
+            t = time.perf_counter()
+            chunks, first = [], None
+            for ch in svc.synthesize_stream(TEXTS[i % 4], code(100 + i)):
+                first = first or time.perf_counter() - t
+                chunks.append(ch)
+            results[("stream", i)] = (first, np.concatenate(chunks, axis=1))
+        except Exception as e:  # noqa: BLE001 - reported by the check
+            errors.append(f"stream {i}: {e!r}")
+
+    def blocking(i):
+        try:
+            results[("synth", i)] = (None, svc.synthesize(
+                TEXTS[i % 4], refine, code(200 + i)))
+        except Exception as e:  # noqa: BLE001 - reported by the check
+            errors.append(f"synthesize {i}: {e!r}")
+
+    # the engine thread's code-engine steps: (start, end, steps launched)
+    # of each call
+    calls = []
+    step = eng.step
+
+    def timed_step(*a, **k):
+        t, n = time.perf_counter(), eng.stats["steps_launched"]
+        out = step(*a, **k)
+        calls.append((t, time.perf_counter(),
+                      eng.stats["steps_launched"] - n))
+        return out
+
+    eng.step = timed_step
+    keeper = Keeper(lambda n, cur, kc: n in (0, 48))
+    gen_mod.k1.decode_step = keeper
+    decode_step.launches = 0
+    before = eng.stats["steps_launched"]
+    threads = [threading.Thread(target=f, args=(i,))
+               for i in range(SERVING_THREADS) for f in (streamer, blocking)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+    finally:
+        gen_mod.k1.decode_step = decode_step
+        del eng.step
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "serving: a request thread is still running after 300 s")
+    check(not errors, f"serving: {errors}")
+    check(len(results) == 2 * SERVING_THREADS, f"serving: {len(results)} "
+          f"results")
+    for key, (_, wav) in results.items():
+        check(wav.size > 0 and bool(np.isfinite(wav).all()),
+              f"serving: {key} gave {wav.shape}, finite "
+              f"{bool(np.isfinite(wav).all())}")
+    counts = {v: n for v, n in decode_step.variant_launches.items() if n}
+    steps = eng.stats["steps_launched"] - before
+    check(sum(counts.values()) == keeper.n and keeper.n >= steps > 0,
+          f"serving: {counts} launches for {keeper.n} calls and {steps} "
+          f"code-engine steps")
+    err = check_kept_calls(chat.packed, chat.gpt_params["norm"],
+                           chat.config.gpt, keeper.kept, "serving", 2)
+    for v in counts:
+        _fold(kernels, launches, {v: counts[v]}, v, err)
+    stats = svc.stats()
+    check(stats["peak_slots"] >= 2, f"serving: peak slots "
+          f"{stats['peak_slots']}")
+    ttfc = [first for (kind, _), (first, _) in results.items()
+            if kind == "stream"]
+    p50, p95 = _quantiles(ttfc)
+    print(f"serving: {SERVING_THREADS} streams + {SERVING_THREADS} blocking "
+          f"requests in {wall:.3f} s, {SERVING_THREADS / wall:.2f} streams/s, "
+          f"{2 * SERVING_THREADS / wall:.2f} requests/s; first chunk p50 {p50:.3f} s, p95 {p95:.3f} s "
+          f"(max {max(ttfc):.3f}); peak slots {stats['peak_slots']}; "
+          f"{steps} code-engine steps; launches {counts}; kept calls' "
+          f"hidden max-abs {err:.3e}; code engine first emission p50 "
+          f"{stats['code'].get('first_emission_p50_s', 0.0):.3f} s")
+    per_step = [(e - b) / n for b, e, n in calls if n]
+    held = sum(e - b for b, e, _ in calls)
+    print(f"serving: the engine thread's code-engine step(): "
+          f"{len(calls)} calls, "
+          f"{1e3 * held / max(steps, 1):.2f} ms a decode step (calls' p50 "
+          f"{1e3 * float(np.median(per_step)):.2f}, max "
+          f"{1e3 * max(per_step):.2f}), {100 * held / wall:.1f}% of the "
+          f"wall")
+
+    # an abandoned stream frees its slot, and a later request is served
+    gen = svc.synthesize_stream(TEXTS[0], code(300, max_new=1024))
+    next(gen)
+    gen.close()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            any(r is not None for r in eng.slots) or svc._pending):
+        time.sleep(0.01)
+    check(not any(r is not None for r in eng.slots) and not svc._pending,
+          "serving: the aborted stream still holds a slot")
+    after = svc.synthesize(TEXTS[1], params_code=code(301, max_new=64),
+                           skip_refine_text=True)
+    check(after.size > 0 and bool(np.isfinite(after).all()),
+          "serving: the request after the abort failed")
+    print("serving: an aborted stream freed its slot; the next request "
+          f"gave {after.size} samples")
+
+    # the port's HTTP server over the same service
+    httpd = api_server.Server(("127.0.0.1", 0), chat, svc)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+
+    def post(path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.headers["Content-Type"], r.read()
+
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.load(r)
+        check(health["status"] == "ok" and health["code"]["slots"] == 16,
+              f"/health: {health}")
+        ctype, wav = post("/generate_voice", {
+            "text": "Hello over HTTP.", "skip_refine_text": True,
+            "max_new_token": 96, "min_new_token": 48, "manual_seed": 7})
+        check(ctype == "audio/wav" and wav[:4] == b"RIFF" and len(wav) > 44,
+              f"/generate_voice: {ctype}, {len(wav)} bytes")
+        t = time.perf_counter()
+        ctype, body = post("/v1/audio/speech", {
+            "input": "Streaming over HTTP.", "stream": True,
+            "max_new_token": 128, "min_new_token": 96, "manual_seed": 8})
+        http_s = time.perf_counter() - t
+        pcm, rate = read_wav_stream(body)
+        check(ctype == "audio/wav" and body.count(b"RIFF") == 1
+              and rate == 24000 and pcm.size > 0
+              and bool(np.isfinite(pcm).all()),
+              f"streamed /v1/audio/speech: {ctype}, {len(body)} bytes")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()  # closes the service too
+        server.join(timeout=10)
+    print(f"serving: HTTP /health, /generate_voice ({len(wav)} bytes) and a "
+          f"streamed /v1/audio/speech ({pcm.size} samples in {http_s:.3f} s) "
+          f"answered")
 
 
 def phase_engine_wide(chat, kernels, launches):
@@ -2362,12 +2854,20 @@ def main():
         print(card)
         return 0
 
+    def lap(name, t=[t_start]):
+        now = time.perf_counter()
+        print(f"chip_smoke: {name} in {now - t[0]:.1f} s")
+        t[0] = now
+
     phase_build()
     phase_gemv(dev)
     phase_kv4_append(dev)
+    lap("build, gemv, kv4 append")
     kernels = phase_kernel(dev)
+    lap("kernel cases")
     phase_attention(dev)
     phase_weight_scales(dev)
+    lap("undiluted attention and MLP")
     torch.cuda.empty_cache()
 
     from chattts_tpu_torch import Chat
@@ -2396,12 +2896,21 @@ def main():
                                   profile=variant == "k3")
         _fold(kernels, launches, counts, variant, err)
         del c
-    phase_multi_segment(chat, twin(use_engine=True), kernels, launches)
+    lap("infer on the Generator")
+    engine_chat = twin(use_engine=True)
+    phase_multi_segment(chat, engine_chat, kernels, launches)
+    lap("multi-segment")
+    phase_stream(chat, engine_chat, kernels, launches)
+    lap("stream")
+    phase_serving(engine_chat, kernels, launches)
+    lap("serving")
+    del engine_chat
     torch.cuda.empty_cache()
     phase_engine(chat, kernels, launches)
     phase_engine_wide(chat, kernels, launches)
     torch.cuda.empty_cache()
     phase_engine_64(chat, kernels, launches)
+    lap("engines")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

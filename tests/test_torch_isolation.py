@@ -37,7 +37,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10
     assert {"kv_quant.py", "threefry.py", "batching.py", "decode_step.py",
-            "chip_smoke.py"} <= {p.name for p in files}
+            "streaming.py", "serving.py", "api_server.py", "audio.py",
+            "logger.py", "seeder.py", "chip_smoke.py"} <= {p.name
+                                                          for p in files}
     bad = []
     for path in files:
         for mod in _imported_modules(path):
