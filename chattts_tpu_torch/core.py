@@ -30,6 +30,13 @@ window of the next chunk decoded ahead of the chunk's status read when
 ``runtime.stream_window_ahead`` (the Generator route), and each window's
 PCM copied to pinned memory one chunk before it is read.
 
+:meth:`Chat.load` reads a ChatTTS asset tree in the reference layout
+(``source="local"`` or ``"custom"``), after checking every file against the
+trusted checksums (``utils/dl.py``): ``Chat._load_assets`` maps each
+checkpoint into the JAX package's trees (``utils/io.py``, the per-module key
+maps) on the host and :meth:`Chat.load_params` moves them to the device.
+:meth:`Chat.unload` drops all of it.
+
 Entry points run on CUDA unless ``device="cpu"`` is passed to :meth:`load`
 or :meth:`load_params`.
 """
@@ -37,6 +44,7 @@ or :meth:`load_params`.
 from __future__ import annotations
 
 import logging
+import os
 import re
 from dataclasses import dataclass
 from typing import List, Literal, Optional, Union
@@ -58,7 +66,17 @@ from .models.speaker import Speaker
 from .models.tokenizer import Tokenizer
 from .norm import Normalizer
 from .ops.decode_step import pack_weights
+from .utils import dl as dl_utils
+from .utils import io as io_utils
 from .weights import resolve_device, to_device
+
+
+def _template(init) -> dict:
+    """The tree ``init(generator)`` builds, on the meta device: shapes
+    only, nothing drawn.  A leaf no key map fills stays on meta, and its
+    copy to a device raises."""
+    with torch.device("meta"):
+        return init(torch.Generator())
 
 
 class Chat:
@@ -77,18 +95,64 @@ class Chat:
     def has_loaded(self, use_decoder=True) -> bool:
         return self._loaded
 
-    def load(self, source: Literal["random"] = "random", seed: int = 0,
-             device=None, coef: Optional[str] = None,
-             use_engine: bool = False, weight_bits: int = 0,
-             kv_bits: int = 8) -> bool:
-        """Seeded random weights (the only source so far).
+    def download_models(
+        self,
+        source: Literal["huggingface", "local", "custom"] = "local",
+        force_redownload: bool = False,
+        custom_path: Optional[str] = None,
+    ) -> Optional[str]:
+        """Locate (or fetch) the asset tree; returns its directory or None.
 
-        Weights are drawn on the CPU from a ``torch.Generator`` seeded with
-        ``seed`` and then moved to ``device`` (CUDA by default), so every
-        device gets the same weights.  The full DVAE (encoder, GFSQ and its
-        own decoder, for voice clone and ``use_decoder=False``) is drawn
-        after the other parts and shares the decoder's ``coef``.
+        ``local``/``custom`` verify an existing tree against the trusted
+        checksum map (``utils/dl.py``) and return None for a tree that
+        fails it.  ``huggingface`` downloads the 2Noise/ChatTTS snapshot
+        through ``huggingface_hub`` where it is installed and the network
+        reachable, and logs the error and returns None otherwise.
+        """
+        if source in ("local", "custom"):
+            base = io_utils.find_assets_dir(custom_path)
+            if base is None:
+                self.logger.error("no asset tree found")
+                return None
+            if not dl_utils.check_all_assets(base):
+                # never hand back a tree that fails the trusted checksums
+                self.logger.error("asset verification failed for %s", base)
+                return None
+            return base
+        try:
+            from huggingface_hub import snapshot_download
 
+            return snapshot_download(
+                repo_id="2Noise/ChatTTS",
+                allow_patterns=["*.yaml", "*.json", "*.safetensors"],
+                cache_dir=custom_path,
+                force_download=force_redownload)
+        except Exception as e:  # noqa: BLE001 - the package and network are optional
+            self.logger.error("huggingface download failed: %s", e)
+            return None
+
+    def load(self, source: Literal["local", "custom", "random"] = "local",
+             custom_path: Optional[str] = None, seed: int = 0, device=None,
+             coef: Optional[str] = None, use_engine: bool = False,
+             weight_bits: int = 0, kv_bits: int = 8) -> bool:
+        """Load weights from a ChatTTS asset tree, or seeded random weights.
+
+        ``source="local"``/``"custom"``: find the reference layout
+        (``custom_path``, the ``CHATTTS_ASSETS`` environment variable, or
+        ``./asset``), verify it against the trusted checksum map and read
+        it (:meth:`_load_assets`).  A tree that fails verification is not
+        loaded: ``load`` returns False and the Chat stays unloaded.  With no
+        tree found it warns and falls back to random weights from ``seed``,
+        as the reference does.
+
+        ``source="random"``: weights drawn on the CPU from a
+        ``torch.Generator`` seeded with ``seed`` and then moved to
+        ``device``, so every device gets the same weights.  The full DVAE
+        (encoder, GFSQ and its own decoder, for voice clone and
+        ``use_decoder=False``) is drawn after the other parts and shares
+        the decoder's ``coef``.
+
+        Either way the weights go to ``device`` (CUDA by default).
         ``use_engine=True`` routes the refine-text pass and code generation
         through the continuous-batching engine (the reference's
         ``load(use_engine=True)``): per-request ``manual_seed``,
@@ -102,12 +166,26 @@ class Chat:
         scales (its ``CHATTTS_KV_INT4``; engines then take up to 64 slots),
         0 in bf16.
         """
-        if source != "random":
-            raise NotImplementedError(
-                "loading reference checkpoints is a later slice of the port "
-                "(ROADMAP.md, Queue 1: Reference-name weight loading)")
-        cfg = self.config
         dev = resolve_device(device)
+        tiers = dict(device=dev, use_engine=use_engine,
+                     weight_bits=weight_bits, kv_bits=kv_bits)
+        assets = None
+        if source != "random":
+            if io_utils.find_assets_dir(custom_path) is None:
+                self.logger.warning(
+                    "no ChatTTS assets found; falling back to random init")
+            else:
+                assets = self.download_models(source, custom_path=custom_path)
+                if assets is None:
+                    return False
+        if assets is None:
+            self._load_random(seed, coef, **tiers)
+        else:
+            self._load_assets(assets, coef, **tiers)
+        return True
+
+    def _load_random(self, seed: int, coef: Optional[str] = None, **tiers):
+        cfg = self.config
         gen = torch.Generator().manual_seed(seed)
         coef_arr = None if coef is None else codecs.decode_coef(coef)
         gpt = llama_mod.init_params(gen, cfg.gpt)
@@ -117,20 +195,82 @@ class Chat:
         dvae = dvae_mod.init_dvae_params(gen, cfg.dvae,
                                          decoder["coef"].numpy())
         self.load_params(gpt=gpt, embed=embed, decoder=decoder, vocos=vocos,
-                         dvae=dvae, device=dev, use_engine=use_engine,
-                         weight_bits=weight_bits, kv_bits=kv_bits)
-        return True
+                         dvae=dvae, **tiers)
+
+    def _load_assets(self, assets_dir: str, coef: Optional[str] = None,
+                     **tiers):
+        """Read the asset tree under ``assets_dir`` (no verification here:
+        :meth:`load` verifies first) into CPU trees in the dtypes the JAX
+        package's loader gives (the checkpoint's float dtype for the DVAE,
+        Decoder, Vocos and Embed leaves, the Embed heads' weight norm folded
+        in float64 and cast back; bf16 GPT matrices, float32 GPT norms),
+        then hand them to :meth:`load_params` with ``tiers`` (``device``,
+        ``use_engine``, ``weight_bits``, ``kv_bits``).  The GPT's matrices
+        are built in bf16 on the host, so its float32 state never reaches
+        the card.  ``coef`` replaces the full DVAE's; the decoder keeps the
+        file's."""
+        cfg, p = self.config, self.config.path
+
+        def path(rel):
+            return os.path.join(assets_dir, rel)
+
+        def mapped(init, rel, key_map):
+            return io_utils.apply_key_map(
+                _template(init), io_utils.load_safetensors(path(rel)),
+                key_map)
+
+        gpt_state = io_utils.load_safetensors(
+            path(os.path.join(p.gpt_ckpt_path, "model.safetensors")))
+        trees = {
+            "dvae": mapped(lambda g: dvae_mod.init_dvae_params(g, cfg.dvae),
+                           p.dvae_ckpt_path,
+                           dvae_mod.dvae_torch_key_map(cfg.dvae)),
+            "decoder": mapped(
+                lambda g: dvae_mod.init_decoder_params(g, cfg.decoder),
+                p.decoder_ckpt_path,
+                dvae_mod.decoder_torch_key_map(cfg.decoder)),
+            "vocos": mapped(lambda g: vocos_mod.init_params(g, cfg.vocos),
+                            p.vocos_ckpt_path,
+                            vocos_mod.torch_key_map(cfg.vocos)),
+            "embed": embed_mod.load_from_state(
+                io_utils.fold_weight_norm(
+                    io_utils.load_safetensors(path(p.embed_path))),
+                cfg.gpt),
+            "gpt": llama_mod.load_from_state(
+                {k.removeprefix("model."): v for k, v in gpt_state.items()},
+                cfg.gpt),
+        }
+        if coef is not None:
+            trees["dvae"]["coef"] = torch.from_numpy(codecs.decode_coef(coef))
+        self.load_params(**trees, tokenizer=Tokenizer(path(p.tokenizer_path)),
+                         **tiers)
+
+    def unload(self):
+        """Drop every parameter tree, the packed weights, the generator,
+        the engines, the tokenizer and the speaker, and start afresh as
+        ``Chat(logger, config)``; a later :meth:`load` packs anew."""
+        logger = self.logger
+        for attr in ("dvae_params", "decoder_params", "vocos_params",
+                     "embed_params", "gpt_params", "packed", "_pack_cache",
+                     "generator", "_code_engines", "_text_engine",
+                     "tokenizer", "speaker", "coef"):
+            if hasattr(self, attr):
+                delattr(self, attr)
+        self.normalizer.destroy()
+        self.__init__(logger, self.config)
 
     def load_params(self, gpt: dict, embed: dict, decoder: dict, vocos: dict,
                     dvae: Optional[dict] = None, device=None,
                     use_engine: bool = False, weight_bits: int = 0,
-                    kv_bits: int = 8) -> "Chat":
+                    kv_bits: int = 8,
+                    tokenizer: Optional[Tokenizer] = None) -> "Chat":
         """Load parameter trees in the JAX package's layouts (numpy arrays
         or tensors, e.g. bridged with ``weights.from_numpy``);
         ``weight_bits`` and ``kv_bits`` as in :meth:`load`.  ``dvae``, the
         full DVAE, is needed only by voice clone (``sample_audio_speaker``
         and the auto-clone branch of a split text) and ``use_decoder=False``;
-        those raise without it."""
+        those raise without it.  ``tokenizer`` defaults to the asset-free
+        fallback at the config's text vocabulary."""
         cfg = self.config
         self.use_engine = use_engine
         self.weight_bits = weight_bits
@@ -144,7 +284,8 @@ class Chat:
         self.vocos_params = to_device(vocos, self.device)
         self.dvae_params = (None if dvae is None
                             else to_device(dvae, self.device))
-        self.tokenizer = Tokenizer(None, vocab_size=cfg.gpt.num_text_tokens)
+        self.tokenizer = tokenizer or Tokenizer(
+            None, vocab_size=cfg.gpt.num_text_tokens)
         self.speaker = Speaker(cfg.gpt.hidden_size, load_spk_stat_string())
         self.coef = dvae_mod.coef_string(self.decoder_params)
         self.packed = self._step_weights()

@@ -311,13 +311,17 @@ class Handler(BaseHTTPRequestHandler):
         self._bytes(wav_bytes(audio), "audio/wav")
 
 
-def serve(port: int, source: str = "random", config=None, device=None,
-          host: str = "0.0.0.0", timeout: float = 600.0) -> Server:
-    """Load a chat on the engine route, start its TTSService (whose waits
-    give up after ``timeout`` seconds) and return the server, bound but not
-    yet serving (call ``serve_forever``)."""
+def serve(port: int, source: str = "local", custom_path=None, config=None,
+          device=None, host: str = "0.0.0.0",
+          timeout: float = 600.0) -> Server:
+    """Load a chat on the engine route (``source`` and ``custom_path`` as in
+    ``Chat.load``), start its TTSService (whose waits give up after
+    ``timeout`` seconds) and return the server, bound but not yet serving
+    (call ``serve_forever``).  Raises when the load fails."""
     chat = Chat(logger=logger, config=config)
-    chat.load(source=source, device=device, use_engine=True)
+    if not chat.load(source=source, custom_path=custom_path, device=device,
+                     use_engine=True):
+        raise RuntimeError("model load failed")
     httpd = Server((host, port), chat, TTSService(chat, timeout=timeout))
     logger.info("serving on %s:%d (continuous batching across requests)",
                 host, httpd.server_address[1])
@@ -328,11 +332,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--host", default="0.0.0.0")
-    ap.add_argument("--source", default="random", choices=["random"])
+    ap.add_argument("--source", default="local",
+                    choices=["local", "custom", "random"])
+    ap.add_argument("--custom-path", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
-    serve(args.port, args.source, device=args.device,
+    serve(args.port, args.source, args.custom_path, device=args.device,
           host=args.host).serve_forever()
 
 

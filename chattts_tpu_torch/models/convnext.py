@@ -95,3 +95,35 @@ def apply_stack(p: dict, x: torch.Tensor, cfg: ConvStackConfig
     for bp in p["blocks"]:
         y = apply_block(bp, y, kernel=cfg.kernel, dilation=cfg.dilation)
     return conv1d(y, p["conv_out"]["w"], None)
+
+
+def stack_torch_key_map(path: str, prefix: str, cfg: ConvStackConfig) -> dict:
+    """Tree path -> (reference state-dict key, transform) for a stack.
+
+    Transforms (``utils/io._transform``): 'C' = conv weight (out,in,k) ->
+    (k,in,out); 'D' = depthwise (dim,1,k) -> (k,1,dim); 'T' = linear
+    transpose; '' = as-is.
+    """
+    m = {
+        f"{path}/conv_in0/w": (f"{prefix}conv_in.0.weight", "C"),
+        f"{path}/conv_in0/b": (f"{prefix}conv_in.0.bias", ""),
+        f"{path}/conv_in1/w": (f"{prefix}conv_in.2.weight", "C"),
+        f"{path}/conv_in1/b": (f"{prefix}conv_in.2.bias", ""),
+        f"{path}/conv_out/w": (f"{prefix}conv_out.weight", "C"),
+    }
+    for i in range(cfg.n_layer):
+        bp = f"{prefix}decoder_block.{i}."
+        m.update(
+            {
+                f"{path}/blocks/{i}/dwconv/w": (f"{bp}dwconv.weight", "D"),
+                f"{path}/blocks/{i}/dwconv/b": (f"{bp}dwconv.bias", ""),
+                f"{path}/blocks/{i}/norm/scale": (f"{bp}norm.weight", ""),
+                f"{path}/blocks/{i}/norm/bias": (f"{bp}norm.bias", ""),
+                f"{path}/blocks/{i}/pw1/w": (f"{bp}pwconv1.weight", "T"),
+                f"{path}/blocks/{i}/pw1/b": (f"{bp}pwconv1.bias", ""),
+                f"{path}/blocks/{i}/pw2/w": (f"{bp}pwconv2.weight", "T"),
+                f"{path}/blocks/{i}/pw2/b": (f"{bp}pwconv2.bias", ""),
+                f"{path}/blocks/{i}/gamma": (f"{bp}weight", ""),
+            }
+        )
+    return m

@@ -115,3 +115,33 @@ def encode_audio(params: dict, audio: torch.Tensor, cfg: DVAEConfig,
 def coef_string(params: dict) -> str:
     """Portable b14 form of the mel coefficients."""
     return codecs.encode_coef(params["coef"].cpu().numpy().astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint key maps (reference safetensors -> the trees above)
+# ---------------------------------------------------------------------------
+
+
+def decoder_torch_key_map(cfg: DecoderConfig) -> dict:
+    m = convnext.stack_torch_key_map("decoder", "decoder.", cfg.stack)
+    m["coef"] = ("coef", "SQUEEZE")  # stored (1, 100, 1)
+    m["out_conv/w"] = ("out_conv.weight", "C")
+    return m
+
+
+def dvae_torch_key_map(cfg: DVAEConfig) -> dict:
+    m = convnext.stack_torch_key_map("decoder", "decoder.", cfg.decoder)
+    m.update(convnext.stack_torch_key_map("encoder", "encoder.", cfg.encoder))
+    m["coef"] = ("coef", "SQUEEZE")
+    m["out_conv/w"] = ("out_conv.weight", "C")
+    m["downsample/conv0/w"] = ("downsample_conv.0.weight", "C")
+    m["downsample/conv0/b"] = ("downsample_conv.0.bias", "")
+    m["downsample/conv1/w"] = ("downsample_conv.2.weight", "C")
+    m["downsample/conv1/b"] = ("downsample_conv.2.bias", "")
+    m.update(
+        {
+            f"vq/{k}": v
+            for k, v in gfsq.torch_key_map("vq_layer.quantizer.", cfg.vq).items()
+        }
+    )
+    return m

@@ -12,9 +12,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..config import GPTConfig
+from ..utils.io import to_tensor
 
 
 def init_params(gen: torch.Generator, cfg: GPTConfig,
@@ -73,3 +75,31 @@ def head_code(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """(B, D) -> code logits (B, num_vq, V_audio), f32."""
     return torch.einsum("bd,qdv->bqv", hidden.to(torch.float32),
                         params["head_code"].to(torch.float32))
+
+
+def torch_key_map(cfg: GPTConfig) -> dict:
+    """Tree paths -> Embed.safetensors keys (after weight-norm folding).
+
+    Stacked tensors are assembled by :func:`load_from_state` rather than
+    mapped 1:1.
+    """
+    return {
+        "emb_text": ("emb_text.weight", ""),
+        "head_text": ("head_text.weight", "T"),
+    }
+
+
+def load_from_state(state: dict, cfg: GPTConfig) -> dict:
+    """A folded reference Embed state dict (``utils/io.fold_weight_norm``)
+    -> the tree of CPU tensors (``utils/io.to_tensor``): the per-codebook
+    tables and heads stacked, the heads transposed to (D, V)."""
+    return {
+        "emb_text": to_tensor(np.asarray(state["emb_text.weight"])),
+        "emb_code": to_tensor(np.stack([
+            np.asarray(state[f"emb_code.{q}.weight"])
+            for q in range(cfg.num_vq)])),
+        "head_text": to_tensor(np.asarray(state["head_text.weight"]).T),
+        "head_code": to_tensor(np.stack([
+            np.asarray(state[f"head_code.{q}.weight"]).T
+            for q in range(cfg.num_vq)])),
+    }

@@ -119,3 +119,16 @@ def quantize(params: dict, x: torch.Tensor, cfg: GFSQConfig) -> torch.Tensor:
             residual = residual - codes_norm * scales[r]
             inds.append(index)
     return torch.stack(inds, dim=-1)
+
+
+def torch_key_map(prefix: str, cfg: GFSQConfig) -> dict:
+    """Tree paths -> reference state-dict keys
+    (``{prefix}rvqs.{g}.project_in.weight`` ...; torch Linear stores (out,
+    in), the tree (in, out), so entries flagged 'T' are transposed)."""
+    m = {}
+    for g in range(cfg.groups):
+        m[f"groups/{g}/project_in/w"] = (f"{prefix}rvqs.{g}.project_in.weight", "T")
+        m[f"groups/{g}/project_in/b"] = (f"{prefix}rvqs.{g}.project_in.bias", "")
+        m[f"groups/{g}/project_out/w"] = (f"{prefix}rvqs.{g}.project_out.weight", "T")
+        m[f"groups/{g}/project_out/b"] = (f"{prefix}rvqs.{g}.project_out.bias", "")
+    return m

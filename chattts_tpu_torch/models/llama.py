@@ -206,3 +206,40 @@ def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur,
         x = x + _mlp(lp["mlp"], h)
     hidden = rms_norm(x[:, 0], params["norm"], eps).to(torch.float32)
     return hidden, cache
+
+
+def load_from_state(state: dict, cfg: GPTConfig) -> dict:
+    """An HF LlamaModel state dict of numpy arrays ('model.' prefix already
+    stripped) -> the tree above, on the CPU: q/k/v fused into ``wqkv`` (D,
+    3, H, Dh) and gate/up into ``wgu`` (D, 2, I), matrices in bfloat16,
+    norms in float32.  Each leaf is built from the state on its own, so the
+    float32 state is never held as a tree."""
+    D, H, Dh, I = (cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim,
+                   cfg.intermediate_size)
+
+    def t(key):  # torch Linear (out, in) -> (in, out)
+        return np.asarray(state[key]).T
+
+    def mat(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+    def vec(key):
+        return torch.from_numpy(np.asarray(state[key], np.float32).copy())
+
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"layers.{i}."
+        qkv = np.stack([t(p + "self_attn.q_proj.weight"),
+                        t(p + "self_attn.k_proj.weight"),
+                        t(p + "self_attn.v_proj.weight")], axis=1)
+        gu = np.stack([t(p + "mlp.gate_proj.weight"),
+                       t(p + "mlp.up_proj.weight")], axis=1)
+        layers.append({
+            "attn": {"wqkv": mat(qkv.reshape(D, 3, H, Dh)),
+                     "wo": mat(t(p + "self_attn.o_proj.weight"))},
+            "mlp": {"wgu": mat(gu.reshape(D, 2, I)),
+                    "down": mat(t(p + "mlp.down_proj.weight"))},
+            "ln1": vec(p + "input_layernorm.weight"),
+            "ln2": vec(p + "post_attention_layernorm.weight"),
+        })
+    return {"layers": layers, "norm": vec("norm.weight")}

@@ -48,3 +48,33 @@ def decode(params: dict, mel: torch.Tensor, cfg: VocosConfig) -> torch.Tensor:
     phase = h[..., nf:]
     spec = torch.polar(mag, phase).transpose(1, 2)  # (B, nf, T)
     return istft(spec, cfg.n_fft, cfg.hop_length)
+
+
+def torch_key_map(cfg: VocosConfig) -> dict:
+    """Tree paths -> vocos-package state-dict keys."""
+    m = {
+        "embed/w": ("backbone.embed.weight", "C"),
+        "embed/b": ("backbone.embed.bias", ""),
+        "norm/scale": ("backbone.norm.weight", ""),
+        "norm/bias": ("backbone.norm.bias", ""),
+        "final_norm/scale": ("backbone.final_layer_norm.weight", ""),
+        "final_norm/bias": ("backbone.final_layer_norm.bias", ""),
+        "head/w": ("head.out.weight", "T"),
+        "head/b": ("head.out.bias", ""),
+    }
+    for i in range(cfg.num_layers):
+        bp = f"backbone.convnext.{i}."
+        m.update(
+            {
+                f"blocks/{i}/dwconv/w": (f"{bp}dwconv.weight", "D"),
+                f"blocks/{i}/dwconv/b": (f"{bp}dwconv.bias", ""),
+                f"blocks/{i}/norm/scale": (f"{bp}norm.weight", ""),
+                f"blocks/{i}/norm/bias": (f"{bp}norm.bias", ""),
+                f"blocks/{i}/pw1/w": (f"{bp}pwconv1.weight", "T"),
+                f"blocks/{i}/pw1/b": (f"{bp}pwconv1.bias", ""),
+                f"blocks/{i}/pw2/w": (f"{bp}pwconv2.weight", "T"),
+                f"blocks/{i}/pw2/b": (f"{bp}pwconv2.bias", ""),
+                f"blocks/{i}/gamma": (f"{bp}gamma", ""),
+            }
+        )
+    return m

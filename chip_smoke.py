@@ -1927,6 +1927,382 @@ def phase_multi_segment(chat, engine_chat, kernels, launches):
           f"{errs}")
 
 
+# folded Embed heads: the tree holds each head as a weight-norm pair (v the
+# head scaled by a random factor a row, g its row norm, both rounded to
+# f32) and the loader folds g * v / ||v|| in f64 and rounds to f32: three
+# f32 roundings of a product, each within 2^-24 of the value, so within
+# 1e-6 of each element (about 5e-7 allowed for, twice that held)
+HEAD_RTOL = 1e-6
+# the loaded Chat and its twin give equal codes, so equal hiddens, and
+# decode them with equal weights on one card: only the convolution and FFT
+# algorithms cuDNN and cuFFT pick for each call could differ
+LOAD_WAV_RTOL_OF_PEAK = 1e-5
+UNLOAD_SHARE = 0.9  # of the memory the load added, given back by unload
+
+
+def _tree_state(tree, key_map):
+    """A parameter tree -> its reference state dict (numpy f32), through
+    the key map and the inverse of each transform."""
+    from chattts_tpu_torch.utils import io as io_utils
+
+    state = {}
+    for path, (key, how) in key_map.items():
+        a = io_utils.get_path(tree, path).float().cpu().numpy()
+        state[key] = (a.T if how == "T" else a.transpose(2, 1, 0)
+                      if how in ("C", "D") else a.reshape(1, -1, 1)
+                      if how == "SQUEEZE" else a)
+    return state
+
+
+def _write_tokenizer(path, vocab_size):
+    """A BERT WordPiece tokenizer.json of ``vocab_size`` ids, with its
+    tokenizer_config.json and special_tokens_map.json: the special tokens,
+    lowercase letters, digits and punctuation, their '##' pieces, padding
+    entries, and the ChatTTS control tokens last as added tokens (so every
+    one sits at or above [break_0])."""
+    import os
+    import string
+
+    from chattts_tpu_torch.models.tokenizer import CONTROL_TOKENS
+
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = list(string.ascii_lowercase + string.digits + string.punctuation)
+    vocab = specials + chars + ["##" + c for c in chars]
+    base = vocab_size - len(CONTROL_TOKENS)
+    vocab += [f"[unused{i}]" for i in range(base - len(vocab))]
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(specials)]
+    added += [{"id": base + i, "content": t, "single_word": False,
+               "lstrip": False, "rstrip": False, "normalized": False,
+               "special": True} for i, t in enumerate(CONTROL_TOKENS)]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": None,
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100,
+                  "vocab": {t: i for i, t in enumerate(vocab)}},
+    }
+    conf = {"do_lower_case": True, "strip_accents": None,
+            "tokenize_chinese_chars": True,
+            "clean_up_tokenization_spaces": True,
+            "tokenizer_class": "BertTokenizer", "unk_token": "[UNK]",
+            "additional_special_tokens": list(CONTROL_TOKENS)}
+    smap = {"unk_token": "[UNK]", "sep_token": "[SEP]", "pad_token": "[PAD]",
+            "cls_token": "[CLS]", "mask_token": "[MASK]",
+            "additional_special_tokens": list(CONTROL_TOKENS)}
+    os.makedirs(path, exist_ok=True)
+    for name, obj in (("tokenizer.json", spec),
+                      ("tokenizer_config.json", conf),
+                      ("special_tokens_map.json", smap)):
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+
+
+def _write_tree(chat, base):
+    """``chat``'s leaves as a ChatTTS asset tree under ``base/asset``,
+    written by the port's own safetensors writer: the DVAE, Decoder, Vocos
+    and Embed files in f32 (the Embed heads as weight-norm pairs), the GPT
+    with HF LlamaModel names (its bf16 matrices widened to f32, exactly),
+    gpt/config.json and a tokenizer of the config's text vocabulary."""
+    import os
+
+    import numpy as np
+    from chattts_tpu_torch.models import dvae as dvae_mod
+    from chattts_tpu_torch.models import vocos as vocos_mod
+    from chattts_tpu_torch.utils.io import save_safetensors
+
+    cfg = chat.config
+    a = os.path.join(base, "asset")
+    os.makedirs(os.path.join(a, "gpt"))
+    save_safetensors(os.path.join(a, "DVAE.safetensors"), _tree_state(
+        chat.dvae_params, dvae_mod.dvae_torch_key_map(cfg.dvae)))
+    save_safetensors(os.path.join(a, "Decoder.safetensors"), _tree_state(
+        chat.decoder_params, dvae_mod.decoder_torch_key_map(cfg.decoder)))
+    save_safetensors(os.path.join(a, "Vocos.safetensors"), _tree_state(
+        chat.vocos_params, vocos_mod.torch_key_map(cfg.vocos)))
+    rng = np.random.default_rng(0)
+    emb = {k: v.float().cpu().numpy() for k, v in chat.embed_params.items()}
+    state = {"emb_text.weight": emb["emb_text"]}
+
+    def wn_pair(prefix, w):  # w (V, D), a torch Linear's layout
+        norm = np.sqrt(np.sum(w.astype(np.float64) ** 2, 1, keepdims=True))
+        scale = rng.uniform(0.5, 2.0, (w.shape[0], 1)).astype(np.float32)
+        state[f"{prefix}.parametrizations.weight.original0"] = norm.astype(
+            np.float32)
+        state[f"{prefix}.parametrizations.weight.original1"] = w * scale
+
+    wn_pair("head_text", emb["head_text"].T)
+    for q in range(cfg.gpt.num_vq):
+        state[f"emb_code.{q}.weight"] = emb["emb_code"][q]
+        wn_pair(f"head_code.{q}", emb["head_code"][q].T)
+    save_safetensors(os.path.join(a, "Embed.safetensors"), state)
+    g = cfg.gpt
+    HD = g.num_attention_heads * g.head_dim
+    state = {"model.norm.weight": chat.gpt_params["norm"].float().cpu().numpy()}
+    for i, lp in enumerate(chat.gpt_params["layers"]):
+        p = f"model.layers.{i}."
+        qkv = lp["attn"]["wqkv"].float().cpu().numpy()  # (D, 3, H, Dh)
+        gu = lp["mlp"]["wgu"].float().cpu().numpy()     # (D, 2, I)
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            state[f"{p}self_attn.{name}.weight"] = qkv[:, j].reshape(-1, HD).T
+        state[f"{p}self_attn.o_proj.weight"] = (
+            lp["attn"]["wo"].float().cpu().numpy().T)
+        state[f"{p}mlp.gate_proj.weight"] = gu[:, 0].T
+        state[f"{p}mlp.up_proj.weight"] = gu[:, 1].T
+        state[f"{p}mlp.down_proj.weight"] = (
+            lp["mlp"]["down"].float().cpu().numpy().T)
+        state[f"{p}input_layernorm.weight"] = lp["ln1"].float().cpu().numpy()
+        state[f"{p}post_attention_layernorm.weight"] = (
+            lp["ln2"].float().cpu().numpy())
+    save_safetensors(os.path.join(a, "gpt", "model.safetensors"), state)
+    with open(os.path.join(a, "gpt", "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaModel"], "model_type": "llama",
+                   "hidden_size": g.hidden_size,
+                   "intermediate_size": g.intermediate_size,
+                   "num_attention_heads": g.num_attention_heads,
+                   "num_key_value_heads": g.num_attention_heads,
+                   "num_hidden_layers": g.num_hidden_layers,
+                   "max_position_embeddings": g.max_position_embeddings,
+                   "rms_norm_eps": g.rms_norm_eps,
+                   "rope_theta": g.rope_theta}, f)
+    _write_tokenizer(os.path.join(a, "tokenizer"), g.num_text_tokens)
+
+
+def _check_loaded_leaves(chat, src):
+    """Every loaded leaf equals its source leaf in dtype, shape and value,
+    but the folded Embed heads, held to HEAD_RTOL of each element."""
+    import torch
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            items = tree.items()
+        elif isinstance(tree, (list, tuple)):
+            items = enumerate(tree)
+        else:
+            return {prefix.rstrip("/"): tree}
+        out = {}
+        for k, v in items:
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+
+    n, head_err = 0, 0.0
+    for name in ("gpt_params", "embed_params", "decoder_params",
+                 "vocos_params", "dvae_params"):
+        got, want = flat(getattr(chat, name)), flat(getattr(src, name))
+        check(set(got) == set(want), f"{name}: the loaded tree's leaves "
+              f"differ: {sorted(set(got) ^ set(want))[:4]}")
+        for k, w in want.items():
+            g = got[k]
+            where = f"{name}/{k}"
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and g.device == w.device,
+                  f"{where}: {g.dtype} {tuple(g.shape)} on {g.device} vs "
+                  f"{w.dtype} {tuple(w.shape)} on {w.device}")
+            if name == "embed_params" and k.startswith("head_"):
+                rel = float(((g - w).abs() / w.abs().clamp_min(1e-30))
+                            .max())
+                head_err = max(head_err, rel)
+                check(bool(((g - w).abs() <= HEAD_RTOL * w.abs()).all()),
+                      f"{where}: folded head off by {rel:.3e} of a value")
+            else:
+                check(torch.equal(g, w), f"{where}: loaded values differ")
+            n += 1
+    return n, head_err
+
+
+def _recording_codes(c):
+    """Wrap ``c._infer_code`` so that the code pass's ids are kept; returns
+    the list they land in."""
+    import numpy as np
+
+    codes, inner = [], c._infer_code
+
+    def recording(*a, **k):
+        for out in inner(*a, **k):
+            codes[:] = [np.array(i) for i in out.ids]
+            yield out
+
+    c._infer_code = recording
+    return codes
+
+
+def phase_load(chat, kernels, launches):
+    """Loading an asset tree at full width.  ``chat``'s seeded random
+    leaves are written as a tree in the reference layout (``_write_tree``)
+    to a temporary directory; the trusted checksum map refuses it through
+    ``Chat.load(source="custom")`` (False, nothing loaded), its own map
+    passes it and refuses a copy with one byte flipped.  ``_load_assets``
+    reads it onto the card: the GB read, the seconds to hash and to load,
+    and the rate are printed, and every leaf must equal its source
+    (``_check_loaded_leaves``).  ``Chat.infer`` on the 4 texts with the
+    refine pass through the tree's tokenizer runs as a main path (launches
+    into K3, kept calls held to the plain version); its codes must equal a
+    ``load_params`` twin's, given the source leaves and the same tokenizer,
+    and its waveforms the twin's within LOAD_WAV_RTOL_OF_PEAK.  ``unload``
+    must give back UNLOAD_SHARE of the memory the load added.  Last, the
+    command-line program runs in a subprocess with ``--source local`` from
+    a directory with no tree (random weights, a warning) and its wav is
+    read back: 24 kHz, not empty."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+    from chattts_tpu_torch import Chat
+    from chattts_tpu_torch.utils import dl as dl_utils
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "tree")
+        t0 = time.perf_counter()
+        _write_tree(chat, base)
+        files = [os.path.join(base, r) for r in dl_utils.ASSET_FILES]
+        gb = sum(os.path.getsize(f) for f in files) / 1e9
+        print(f"load: wrote a {gb:.3f} GB tree in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        refused = Chat(config=chat.config)
+        check(refused.load(source="custom", custom_path=base) is False
+              and not refused.has_loaded(),
+              "the trusted checksum map did not refuse a synthetic tree")
+        del refused
+        t0 = time.perf_counter()
+        own = dl_utils.generate_sha256_map(base)
+        t_hash = time.perf_counter() - t0
+        check(dl_utils.check_all_assets(base, sha256_map=own),
+              "the tree fails its own checksum map")
+        flipped = os.path.join(tmp, "flipped")
+        shutil.copytree(base, flipped, copy_function=os.link)
+        victim = os.path.join(flipped, "asset", "Vocos.safetensors")
+        os.unlink(victim)
+        shutil.copyfile(os.path.join(base, "asset", "Vocos.safetensors"),
+                        victim)
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 1]))
+        check(not dl_utils.check_all_assets(flipped, sha256_map=own),
+              "a flipped byte passed the checksum check")
+
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        loaded = Chat(config=chat.config)
+        t0 = time.perf_counter()
+        loaded._load_assets(base)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_allocated()
+        print(f"load: {gb:.3f} GB read, hash {t_hash:.2f} s, load to the "
+              f"card {t_load:.2f} s, {gb / t_load:.3f} GB/s; "
+              f"{(mem1 - mem0) / 1e9:.3f} GB allocated on the card")
+        n, head_err = _check_loaded_leaves(loaded, chat)
+        print(f"load: {n} leaves equal to their source; folded heads within "
+              f"{head_err:.3e} of a value (limit {HEAD_RTOL})")
+        check(type(loaded.tokenizer._backend).__name__ == "_HFBackend"
+              and loaded.tokenizer.len == chat.config.gpt.num_text_tokens,
+              "the tree's tokenizer was not loaded")
+
+    refine = Chat.RefineTextParams(max_new_token=32, min_new_token=4,
+                                   manual_seed=11, show_tqdm=False)
+
+    def code():
+        return Chat.InferCodeParams(max_new_token=128, min_new_token=64,
+                                    manual_seed=12, show_tqdm=False)
+
+    def run(c):
+        return c.infer(TEXTS, split_text=False, params_refine_text=refine,
+                       params_infer_code=code())
+
+    title = "infer on the loaded tree"
+    run(loaded)  # warm-up: the tree's tokenizer and prompt shapes
+    codes = _recording_codes(loaded)
+    try:
+        wavs, wall, counts, errs, steps = _main_path_run(
+            loaded, lambda: run(loaded), title, 3)
+    finally:
+        del loaded._infer_code
+    _check_wavs(wavs)
+    check(set(counts) == {"k3"}, f"{title}: launches {counts}, expected k3")
+    _fold(kernels, launches, counts, "k3", errs["k3"])
+    twin = Chat(config=chat.config)
+    twin.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
+                     decoder=chat.decoder_params, vocos=chat.vocos_params,
+                     dvae=chat.dvae_params, tokenizer=loaded.tokenizer)
+    twin_codes = _recording_codes(twin)
+    twin_wavs = run(twin)
+    diff = _first_code_difference(codes, twin_codes)
+    check(diff is None, f"{title}: codes differ from the twin's: {diff}")
+    err = 0.0
+    for w, t in zip(wavs, twin_wavs):
+        check(w.shape == t.shape, f"{title}: wav {w.shape} vs the twin's "
+              f"{t.shape}")
+        err = max(err, float(np.abs(w - t).max()) / float(np.abs(t).max()))
+    check(err <= LOAD_WAV_RTOL_OF_PEAK,
+          f"{title}: wavs differ from the twin's by {err:.3e} of the peak")
+    print(f"{title}: steps per pass {steps}, wall {wall:.3f} s, k3 launches "
+          f"{counts['k3']}, codes equal to the twin's ({len(codes)} rows, "
+          f"{sum(len(c) for c in codes)} steps), wavs within {err:.3e} of "
+          f"the peak (limit {LOAD_WAV_RTOL_OF_PEAK})")
+    del twin, twin_wavs, wavs
+    gc.collect()
+    torch.cuda.synchronize()
+    mem2 = torch.cuda.memory_allocated()
+    loaded.unload()
+    check(not loaded.has_loaded() and not hasattr(loaded, "gpt_params")
+          and not hasattr(loaded, "packed"), "unload left the weights")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem3 = torch.cuda.memory_allocated()
+    # from just after the load: what infer left allocated elsewhere counts
+    # against the unload
+    added, back = mem1 - mem0, mem1 - mem3
+    print(f"unload: the load added {added / 1e9:.3f} GB, unload gave back "
+          f"{back / 1e9:.3f} GB ({100 * back / max(added, 1):.1f}%; "
+          f"{mem2 / 1e9:.3f} GB allocated before the unload, "
+          f"{mem3 / 1e9:.3f} after, {mem0 / 1e9:.3f} before the load)")
+    check(back >= UNLOAD_SHARE * added,
+          f"unload gave back {back} of the {added} bytes the load added")
+    del loaded
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ)
+        env.pop("CHATTTS_ASSETS", None)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "chattts_tpu_torch.examples.cli",
+             "Hello from the command line.", "--source", "local",
+             "--max-new", "48", "--manual-seed", "3", "-o", "cli"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        check(out.returncode == 0, f"cli exited {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        check("falling back to random init" in out.stderr,
+              "cli: no fallback warning without a tree")
+        with wave.open(os.path.join(tmp, "cli.wav"), "rb") as w:
+            rate, frames = w.getframerate(), w.getnframes()
+        check(rate == 24000 and frames > 0,
+              f"cli wav: {rate} Hz, {frames} frames")
+        print(f"cli: --source local without a tree, {frames} samples at "
+              f"{rate} Hz in {t_cli:.1f} s (process start, random weights, "
+              f"refine and code passes)")
+
+
 STREAM_TOL = 2e-4       # window vs one-shot decode past the first window
 FIRST_WINDOW_SNR_DB = 60.0  # the first window, emitted under first_guard
 
@@ -2897,6 +3273,8 @@ def main():
         _fold(kernels, launches, counts, variant, err)
         del c
     lap("infer on the Generator")
+    phase_load(chat, kernels, launches)
+    lap("load")
     engine_chat = twin(use_engine=True)
     phase_multi_segment(chat, engine_chat, kernels, launches)
     lap("multi-segment")

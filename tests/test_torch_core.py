@@ -282,14 +282,20 @@ def test_refine_text_only_and_empty_input(chats):
     assert tchat.infer([]) == []
 
 
-def test_later_slices_raise(chats):
-    """Reference-name weight loading is still a later slice and raises,
-    naming its ROADMAP item; streaming, which raised here until it was
-    ported, returns a generator of audio chunks."""
+def test_later_slices_raise(chats, tmp_path, monkeypatch, caplog):
+    """Reference-name weight loading, a later slice until it was ported,
+    now finds no tree in an empty directory and falls back, as the
+    reference does, to random weights with a warning; streaming, which
+    raised here until it was ported, returns a generator of audio
+    chunks."""
     _, tchat = chats
-    with pytest.raises(NotImplementedError,
-                       match="Reference-name weight loading"):
-        TChat(config=tchat.config).load(source="local", device="cpu")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("CHATTTS_ASSETS", raising=False)
+    chat = TChat(config=tchat.config)
+    with caplog.at_level("WARNING"):
+        assert chat.load(source="local", device="cpu")
+    assert "falling back to random init" in caplog.text
+    assert chat.has_loaded()
     chunks = list(tchat.infer("hi", stream=True, skip_refine_text=True,
                               params_infer_code=_params(TChat)[1]))
     assert chunks and all(c.dtype == np.float32 and c.ndim == 2

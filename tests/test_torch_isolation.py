@@ -52,8 +52,66 @@ def test_port_keeps_its_own_resources():
     res = Path(chattts_tpu_torch.__file__).parent / "res"
     assert (res / "spk_stat.b14").exists()
     assert (res / "homophones_map.json").exists()
+    assert (res / "sha256_map.json").exists()
     assert (Path(chattts_tpu_torch.__file__).parent / "csrc"
             / "decode_step.cu").exists()
+
+
+# packages the JAX package reads checkpoints and tokenizers with; the port
+# reads both formats itself
+LOADER_PACKAGES = ("safetensors", "transformers", "tokenizers",
+                   "huggingface_hub", "tqdm")
+
+
+def test_port_imports_no_loader_package():
+    """Only ``Chat.download_models(source="huggingface")`` may import
+    ``huggingface_hub``, inside the call."""
+    bad = []
+    for path in _port_files():
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in LOADER_PACKAGES and not (
+                    top == "huggingface_hub" and path.name == "core.py"):
+                bad.append(f"{path.relative_to(REPO)}: {mod}")
+    assert not bad, bad
+
+
+def test_loading_a_tree_pulls_in_no_reference_or_loader_package(
+        tiny_config, tmp_path):
+    """In a fresh interpreter: import the port, read a tree with
+    ``_load_assets`` and run its tokenizer; none of JAX, chattts_tpu or the
+    loader packages is imported on the way (tqdm aside: torch itself may
+    import it)."""
+    import json
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from torch_port_utils import port_config, write_tiny_tree
+
+    write_tiny_tree(str(tmp_path), tiny_config, np.float32,
+                    np.random.default_rng(0))
+    g = port_config(tiny_config).gpt
+    script = f"""
+import json, sys
+before = set(sys.modules)
+from chattts_tpu_torch import Chat
+from chattts_tpu_torch import config as C
+cfg = eval({repr(repr(port_config(tiny_config)))}, vars(C))
+chat = Chat(config=cfg)
+chat._load_assets(sys.argv[1], device="cpu")
+ids = chat.tokenizer.encode(["[Stts]hello, world[uv_break]"], {g.num_vq})[0]
+assert chat.has_loaded() and ids.size
+new = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in {json.dumps(list(FORBIDDEN + LOADER_PACKAGES[:4]))})
+print(json.dumps(new))
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_cuda_sources_stand_alone():

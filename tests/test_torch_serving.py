@@ -344,8 +344,8 @@ def test_cadence_is_warm_only_after_a_window_was_decoded(tiny_config):
 
 @pytest.fixture(scope="module")
 def server(tiny_config):
-    httpd = api.serve(0, config=port_config(tiny_config), device="cpu",
-                      host="127.0.0.1", timeout=TIMEOUT)
+    httpd = api.serve(0, source="random", config=port_config(tiny_config),
+                      device="cpu", host="127.0.0.1", timeout=TIMEOUT)
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     yield httpd, f"http://127.0.0.1:{httpd.server_address[1]}"

@@ -94,3 +94,112 @@ def gfsq_boundary_distance(jparams, x, cfg) -> np.ndarray:
             codes, _ = gfsq._fsq_quantize(jnp.asarray(res / scales[r]), cfg)
             res = res - np.asarray(codes) * scales[r]
     return np.stack(out, -1)
+
+
+def write_tokenizer(path: str, vocab_size: int) -> None:
+    """A BERT WordPiece tokenizer of ``vocab_size`` ids saved by
+    ``BertTokenizerFast.save_pretrained`` into ``path``: the special tokens,
+    Latin letters, digits, punctuation, a few words and pieces, some CJK
+    characters, padding entries, and the ChatTTS control tokens added last
+    (so every one sits at or above ``[break_0]``), the first 20 as normal
+    added tokens and the rest as special ones."""
+    import os
+    import tempfile
+
+    from transformers import BertTokenizerFast
+
+    from chattts_tpu_torch.models.tokenizer import CONTROL_TOKENS
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += list("abcdefghijklmnopqrstuvwxyz0123456789.,!?'\"-()[]_:;/")
+    vocab += ["##" + c for c in "abcdefghijklmnopqrstuvwxyz0123456789"]
+    vocab += ["hello", "world", "the", "quick", "brown", "##ing", "##ed",
+              "un", "##believ", "##able", "cafe", "naive", "speech"]
+    vocab += list("你好世界中文语音合成我们")
+    base = vocab_size - len(CONTROL_TOKENS)
+    if len(vocab) > base:
+        raise ValueError(f"vocab_size {vocab_size} is too small")
+    vocab += [f"[unused{i}]" for i in range(base - len(vocab))]
+    with tempfile.TemporaryDirectory() as d:
+        vf = os.path.join(d, "vocab.txt")
+        with open(vf, "w", encoding="utf-8") as f:
+            f.write("\n".join(vocab) + "\n")
+        tok = BertTokenizerFast(vocab_file=vf)
+        tok.add_tokens(CONTROL_TOKENS[:20])
+        tok.add_special_tokens(
+            {"additional_special_tokens": CONTROL_TOKENS[20:]})
+        assert len(tok) == vocab_size
+        tok.save_pretrained(path)
+
+
+def write_tiny_tree(base: str, cfg, dtype, rng) -> dict:
+    """A ChatTTS asset tree in the reference layout under ``base/asset``,
+    for the JAX config ``cfg``: each checkpoint a random state dict in the
+    torch formats the reference writes (as
+    ``test_weight_loading._synth_state`` builds them), stored as ``dtype``
+    with ``safetensors``; the Embed heads as weight-norm pairs, the GPT with
+    HF LlamaModel names; ``gpt/config.json`` and a tokenizer of
+    ``cfg.gpt.num_text_tokens`` ids.  Returns the state dicts by file."""
+    import json
+    import os
+
+    from safetensors.numpy import save_file
+
+    from chattts_tpu.models import dvae as jdvae
+    from chattts_tpu.models import vocos as jvocos
+    from test_weight_loading import _synth_state
+
+    a = os.path.join(base, "asset")
+    os.makedirs(os.path.join(a, "gpt"))
+    key = jax.random.PRNGKey(0)
+    states = {
+        "DVAE": _synth_state(jdvae.init_dvae_params(key, cfg.dvae),
+                             jdvae.dvae_torch_key_map(cfg.dvae), rng),
+        "Decoder": _synth_state(jdvae.init_decoder_params(key, cfg.decoder),
+                                jdvae.decoder_torch_key_map(cfg.decoder),
+                                rng),
+        "Vocos": _synth_state(jvocos.init_params(key, cfg.vocos),
+                              jvocos.torch_key_map(cfg.vocos), rng),
+    }
+    g = cfg.gpt
+    D, Vt, Va = g.hidden_size, g.num_text_tokens, g.num_audio_tokens
+    emb = {"emb_text.weight": rng.standard_normal((Vt, D))}
+
+    def wn_pair(prefix, w):
+        emb[f"{prefix}.parametrizations.weight.original0"] = (
+            np.sqrt((w * w).sum(axis=1, keepdims=True))
+            * rng.uniform(0.5, 2.0, (w.shape[0], 1)))
+        emb[f"{prefix}.parametrizations.weight.original1"] = w
+
+    wn_pair("head_text", rng.standard_normal((Vt, D)))
+    for q in range(g.num_vq):
+        emb[f"emb_code.{q}.weight"] = rng.standard_normal((Va, D))
+        wn_pair(f"head_code.{q}", rng.standard_normal((Va, D)))
+    states["Embed"] = emb
+    HD, I = g.num_attention_heads * g.head_dim, g.intermediate_size
+    gpt = {"model.norm.weight": 1 + 0.1 * rng.standard_normal(D)}
+    for i in range(g.num_hidden_layers):
+        p = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (HD, D)),
+                            ("self_attn.k_proj", (HD, D)),
+                            ("self_attn.v_proj", (HD, D)),
+                            ("self_attn.o_proj", (D, HD)),
+                            ("mlp.gate_proj", (I, D)),
+                            ("mlp.up_proj", (I, D)),
+                            ("mlp.down_proj", (D, I))):
+            gpt[p + name + ".weight"] = 0.05 * rng.standard_normal(shape)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            gpt[p + name + ".weight"] = 1 + 0.1 * rng.standard_normal(D)
+    states["gpt/model"] = gpt
+    for name, state in states.items():
+        state = {k: np.ascontiguousarray(np.asarray(v).astype(dtype))
+                 for k, v in state.items()}
+        states[name] = state
+        save_file(state, os.path.join(a, f"{name}.safetensors"))
+    with open(os.path.join(a, "gpt", "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaModel"], "hidden_size": D,
+                   "intermediate_size": I,
+                   "num_attention_heads": g.num_attention_heads,
+                   "num_hidden_layers": g.num_hidden_layers}, f)
+    write_tokenizer(os.path.join(a, "tokenizer"), g.num_text_tokens)
+    return states
