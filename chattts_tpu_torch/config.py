@@ -159,8 +159,8 @@ class RuntimeConfig:
     # non-streaming synthesis pipelines chunked decode with windowed
     # vocoding and async PCM fetches (exact guard - no first-emission
     # approximation), overlapping the host-link transfers with device
-    # compute.  None = auto (on for the TPU backend); env
-    # CHATTTS_PIPELINED_DECODE=0/1 overrides.
+    # compute.  None = off in the port (the reference turns it on for the
+    # TPU backend only); env CHATTTS_PIPELINED_DECODE=0/1 overrides.
     pipelined_decode: Optional[bool] = None
     # decode chunk length (steps) for the pipelined non-streaming path
     pipeline_chunk: int = 96

@@ -1,10 +1,10 @@
-"""Chat: the public facade (port of ``chattts_tpu/core.py``, non-streaming).
+"""Chat: the public facade (port of ``chattts_tpu/core.py``).
 
 Two passes per batch of texts, as in the reference: the refine-text pass
 rewrites the normalized text through the text head, then the code pass
 samples 4-codebook audio codes and keeps the hidden states, which the mel
 decoder and Vocos turn into 24 kHz audio in one shot (the reference's
-``_device_decode`` with ``pipelined_decode=False``).  Both passes run the
+``_device_decode``) or, pipelined, chunk by chunk as it is generated.  Both passes run the
 Generator, or with ``use_engine=True`` the continuous-batching Engine
 (``engine/batching.py``), whose slots concurrent callers share; either way
 every decode step is the hand-written kernel of ``ops/decode_step.py`` on
@@ -18,6 +18,16 @@ first, its wav encoded to codes by the DVAE encoder
 (:meth:`Chat.sample_audio_speaker`), and those codes prompt every segment.
 ``use_decoder=False`` decodes the sampled codes through the DVAE's GFSQ
 embed and its own decoder stack instead of the hiddens.
+
+With ``runtime.pipelined_decode`` (off unless set; the environment variable
+``CHATTTS_PIPELINED_DECODE=0/1`` overrides it both ways), non-streaming
+synthesis vocodes while it generates (:meth:`Chat._pipelined_wavs`): the
+code pass yields every ``pipeline_chunk`` steps, each chunk goes through
+the conv-state stream functions (``models/convnext.py``, ``dvae.py``,
+``vocos.py``, ``ops/stft.py``) or, for a chunk too short for the conv
+stacks' offset, through exact-guard windows, and each piece of PCM starts
+its copy to the host at once.  ``show_tqdm`` draws a bar over each pass
+(``utils/progress.py``), fed at the host reads the passes already make.
 
 ``infer(stream=True)`` returns a generator of audio chunks, on both routes
 and with ``use_decoder=False``, with the reference's cadence: the first
@@ -43,6 +53,7 @@ or :meth:`load_params`.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import re
@@ -57,7 +68,8 @@ from .config import Config, load_spk_stat_string
 from .engine.generate import (GenerateRequest, GenerationOutputs, Generator,
                               Interrupt, _round_up)
 from .engine.streaming import (AsyncDeviceWindows, DeviceStreamingDecoder,
-                               EmissionPacer, StreamingDecoder, plan_windows)
+                               EmissionPacer, StreamingDecoder,
+                               copy_to_host_async, plan_windows)
 from .models import dvae as dvae_mod
 from .models import embed as embed_mod
 from .models import llama as llama_mod
@@ -65,6 +77,7 @@ from .models import vocos as vocos_mod
 from .models.speaker import Speaker
 from .models.tokenizer import Tokenizer
 from .norm import Normalizer
+from .ops import stft as stft_ops
 from .ops.decode_step import pack_weights
 from .utils import dl as dl_utils
 from .utils import io as io_utils
@@ -87,6 +100,9 @@ class Chat:
         self.normalizer = Normalizer(logger=logger)
         self.context = Interrupt()
         self._loaded = False
+        # (B, chunk, device, wire_int16, decoder, vocos config) -> the
+        # pipelined decode's steps (``_incremental_fns``)
+        self._incr_fns = {}
 
     # ------------------------------------------------------------------
     # Loading
@@ -132,10 +148,18 @@ class Chat:
             return None
 
     def load(self, source: Literal["local", "custom", "random"] = "local",
-             custom_path: Optional[str] = None, seed: int = 0, device=None,
-             coef: Optional[str] = None, use_engine: bool = False,
-             weight_bits: int = 0, kv_bits: int = 8) -> bool:
+             custom_path: Optional[str] = None,
+             compile: bool = True,  # noqa: A002 - the reference's name
+             coef: Optional[str] = None, seed: int = 0,
+             use_engine: bool = False, *, device=None, weight_bits: int = 0,
+             kv_bits: int = 8) -> bool:
         """Load weights from a ChatTTS asset tree, or seeded random weights.
+
+        The positional order is the reference's (``source, custom_path,
+        compile, coef, seed, use_engine``); the port's own arguments
+        (``device``, ``weight_bits``, ``kv_bits``) are keyword-only.
+        ``compile`` is accepted and ignored, as in the reference, which keeps
+        it for API parity: the port runs eagerly.
 
         ``source="local"``/``"custom"``: find the reference layout
         (``custom_path``, the ``CHATTTS_ASSETS`` environment variable, or
@@ -463,6 +487,27 @@ class Chat:
                                           params_infer_code)
 
     @staticmethod
+    def _progress_bar(params, n_requests: int, desc: str, per_request: bool):
+        """A progress bar over a generation pass when ``show_tqdm`` asks
+        (``utils/progress.py``: tqdm where it is installed, nothing drawn
+        where not).  ``per_request``: engine slots advance on their own,
+        so the total scales with the batch; the Generator's rows advance
+        together, so the total is one request's step budget."""
+        if not params.show_tqdm:
+            return None
+        from .utils.progress import ProgressBar
+
+        total = params.max_new_token * (n_requests if per_request else 1)
+        return ProgressBar(total, desc=desc)
+
+    @staticmethod
+    def _closing_bar(gen, bar):
+        try:
+            yield from gen
+        finally:
+            bar.close()
+
+    @staticmethod
     def _attempt_stream(gen):
         """Wrap a generation stream as (restarted, result) pairs.
 
@@ -661,14 +706,270 @@ class Chat:
 
         return call
 
+    def _pipelined(self) -> bool:
+        """Whether non-streaming synthesis takes the pipelined decode:
+        ``runtime.pipelined_decode`` (None is off here; the reference turns
+        it on only on a TPU backend), overridden both ways by the
+        environment variable ``CHATTTS_PIPELINED_DECODE`` (``1`` on, any
+        other value off), as in the reference."""
+        env = os.environ.get("CHATTTS_PIPELINED_DECODE")
+        if env is not None:
+            return env == "1"
+        return bool(self.config.runtime.pipelined_decode)
+
     def _generate_wavs(self, batch: List[str], use_decoder: bool,
                        params: "Chat.InferCodeParams") -> np.ndarray:
+        """Non-streaming synthesis of one batch of texts: the pipelined
+        decode (:meth:`_pipelined_wavs`) when it is on and the hiddens are
+        decoded, else the one-shot decode."""
         if not use_decoder:
             self._dvae("use_decoder=False")
+        elif self._pipelined():
+            return self._pipelined_wavs(batch, params)
         result = next(self._infer_code(batch, False, use_decoder, params))
         wavs = self._decode_to_wavs(result, use_decoder)
         result.destroy()
         return wavs
+
+    def _incremental_fns(self, B: int, Fh: int):
+        """The conv-state incremental hidden -> PCM steps of the pipelined
+        decode, for B rows and chunks of Fh hidden positions.
+
+        Returns (init_state, first_fn, step_fn), or None when the chunk is too small for the delayed ISTFT consume (the mel
+        offset is above 2 * Fh).  ``first_fn`` primes the stream (no PCM
+        yet); ``step_fn`` feeds Fh hidden positions and returns exactly
+        Fh * 2 * hop RAW samples (the caller drops the first n_fft // 2
+        once).  O(new frames) a call, and exact against the full decode
+        (``models/convnext.py``'s streaming notes).  The state is plain
+        tensors, each made anew by a call and never written in place.
+
+        The steps are cached by (B, Fh) and by everything they capture
+        (the device, ``runtime.wire_int16``, the decoder and Vocos
+        configs), so a later ``load_params`` or a new ``config`` gets its
+        own."""
+        cfg = self.config
+        key = (B, Fh, self.device, cfg.runtime.wire_int16, cfg.decoder,
+               cfg.vocos)
+        cached = self._incr_fns.get(key)
+        if cached is not None:
+            return cached
+        F = 2 * Fh
+        Dc = (dvae_mod.decoder_stream_offset(cfg.decoder)
+              + vocos_mod.stream_offset(cfg.vocos))
+        if Dc > F:
+            return None
+        wire = cfg.runtime.wire_int16
+        n_fft, hop = cfg.vocos.n_fft, cfg.vocos.hop_length
+        dev = self.device
+
+        def init_state():
+            return {
+                "dec": dvae_mod.decoder_stream_init(B, cfg.decoder,
+                                                    device=dev),
+                "voc": vocos_mod.stream_init(B, cfg.vocos, device=dev),
+                "spec": None,  # the previous chunk's spec frames
+                "carry": stft_ops.istft_stream_init(B, n_fft, hop,
+                                                    device=dev),
+            }
+
+        def core(dp, vp, state, hid, c, end):
+            pos = c * Fh + torch.arange(Fh, device=hid.device)
+            # finished rows: zeros, as the one-shot decode masks them
+            hid = torch.where((pos[None, :] < end[:, None])[:, :, None],
+                              hid, 0.0)
+            t0 = c * F
+            mel, dstate, cum = dvae_mod.decode_from_hidden_stream(
+                dp, hid, state["dec"], cfg.decoder, t0=t0)
+            spec, vstate = vocos_mod.features_stream(
+                vp, mel, state["voc"], cfg.vocos, t0=t0, cum_off=cum)
+            return spec, dstate, vstate
+
+        def first(dp, vp, state, hid, end):
+            spec, dstate, vstate = core(dp, vp, state, hid, 0, end)
+            return {**state, "dec": dstate, "voc": vstate, "spec": spec}
+
+        def step(dp, vp, state, hid, c, end):
+            spec, dstate, vstate = core(dp, vp, state, hid, c, end)
+            # the ISTFT lags one chunk: it consumes full-decode frames
+            # [(c - 1) * F, c * F), which sit at stream offset Dc in the
+            # last two spec chunks
+            take = torch.cat([state["spec"], spec], dim=1)[:, Dc:Dc + F]
+            raw, carry = stft_ops.istft_stream(take, state["carry"], n_fft,
+                                               hop)
+            if wire:
+                raw = torch.clamp(raw * 32767.0, -32767,
+                                  32767).to(torch.int16)
+            return raw, {"dec": dstate, "voc": vstate, "spec": spec,
+                         "carry": carry}
+
+        fns = (init_state, first, step)
+        self._incr_fns[key] = fns
+        return fns
+
+    def _pipelined_wavs(self, batch: List[str],
+                        params: "Chat.InferCodeParams") -> np.ndarray:
+        """Chunked decode -> vocode on the card as the chunks come -> PCM
+        copied to the host as it is made (the reference's
+        ``_pipelined_wavs``).
+
+        The one-shot path runs [decode all steps] -> [vocode] -> [one
+        blocking copy]; here generation yields every ``pipeline_chunk``
+        steps (at least 16; on the engine route, long chunks), each yield
+        advances the vocoder on the card, and every emitted sample window
+        starts a non-blocking copy to pinned memory at once.  With 2 *
+        chunk at least the conv stacks' mel offset, the vocoder is the
+        conv-state chain (:meth:`_incremental_fns`) and a right-aligned
+        full flush window decodes the tail; below it, the exact-guard
+        sliding windows of ``engine/streaming.AsyncDeviceWindows``.  An
+        utterance shorter than the flush window, or a stream that fell
+        behind, takes the one-shot decode; so do hiddens that never reached
+        the card.  The rows are masked at their ends as the one-shot
+        decode masks them, and each row's wav is zeroed past its end."""
+        rt = self.config.runtime
+        B = len(batch)
+        chunk = max(16, rt.pipeline_chunk)
+        ctx, guard, window = plan_windows(self.config.decoder.stack,
+                                          self.config.vocos, chunk)
+        hop = self.config.vocos.hop_length
+        spc = 2 * hop
+        nfft2 = self.config.vocos.n_fft // 2
+        incr = self._incremental_fns(B, chunk)
+        if incr is not None:
+            # the flush window covers the tail not yet emitted (up to 2
+            # chunks: the ISTFT's one-chunk lag and a ragged last chunk)
+            # and the guard of its inexact left edge
+            init_state, first_fn, step_fn = incr
+            flush_w = _round_up(2 * chunk + guard + 8, 16)
+            state = init_state()
+        else:
+            flush_w = window  # the windowed walk (chunk below the offset)
+        sd = None
+        last = None
+        ends = None
+        parts: List = []
+        final_res = None
+        fed = 0
+        emitted = 0  # samples emitted by the incremental stream
+        broken = False  # no hiddens on the card: one-shot at the end
+
+        # flush speculation: when the dispatched chunk provably ends the
+        # generation (its step count reaches max_new), the flush window's
+        # (lo, n) and the stream's final emitted count are known, so the
+        # flush vocode and its tail's host copy are enqueued here, before
+        # the host waits on the chunk's status.  The decode reads the
+        # buffer after the last chunk wrote it (stream order), so a hit is
+        # bit-equal to the flush made after; a miss (a row ended early)
+        # decodes the flush again.
+        stash: List = [None]  # (lo, n, predicted emitted, host copy)
+
+        def on_dispatch(st, hi):
+            if incr is None or hi < params.max_new_token:
+                return
+            n_p, lo_p = int(hi), int(hi) - flush_w
+            fed_p = n_p // chunk
+            em_p = (fed_p - 1) * chunk * spc - nfft2 if fed_p >= 2 else 0
+            if lo_p < 0 or em_p < lo_p * spc:
+                return
+            wav = self._device_window_fn(flush_w)(
+                st.hiddens, lo_p, n_p, 0, st.end_idx)
+            stash[0] = (lo_p, n_p, em_p,
+                        copy_to_host_async(wav[:, em_p - lo_p * spc:]))
+
+        if not rt.stream_window_ahead:
+            on_dispatch = None
+        for restarted, result in self._attempt_stream(self._infer_code(
+                batch, True, True, params, stream_batch_override=chunk,
+                speculate=True, on_dispatch=on_dispatch)):
+            if restarted:
+                # the empty-generation retry restarted: drop the discarded
+                # attempt's audio
+                parts.clear()
+                fed = emitted = 0
+                sd = None
+                stash[0] = None
+                if incr is not None:
+                    state = init_state()
+            ends = [ids.shape[0] for ids in result.ids]
+            if final_res is not None:
+                final_res.destroy()
+            final_res = result
+            if result.hiddens_dev is None:
+                broken = True
+            if broken:
+                continue
+            n = result.hid_n  # the buffer may hold more (the engine's rows)
+            if incr is not None:
+                while (fed + 1) * chunk <= n:
+                    hidc = result.hiddens_dev[:, fed * chunk:
+                                              (fed + 1) * chunk]
+                    if fed == 0:
+                        state = first_fn(self.decoder_params,
+                                         self.vocos_params, state, hidc,
+                                         result.end_dev)
+                    else:
+                        pcm, state = step_fn(
+                            self.decoder_params, self.vocos_params, state,
+                            hidc, fed, result.end_dev)
+                        if fed == 1:  # the ISTFT's centre padding, once
+                            pcm = pcm[:, nfft2:]
+                        parts.append(copy_to_host_async(pcm))
+                        emitted += pcm.shape[1]
+                    fed += 1
+            else:
+                if sd is None:
+                    sd = AsyncDeviceWindows(
+                        self._device_window_fn(window), B,
+                        self.config.gpt.hidden_size,
+                        wire_int16=rt.wire_int16,
+                        ctx=ctx, guard=guard, window=window)
+                parts += sd.update_dev(result.hiddens_dev, n,
+                                       end_dev=result.end_dev,
+                                       final=bool(result.finished.all()))
+            last = (result.hiddens_dev, n, result.end_dev)
+        if broken and final_res is not None:
+            wavs = self._decode_to_wavs(final_res, True)
+            final_res.destroy()
+            return wavs
+        if last is None or ends is None:
+            if final_res is not None:
+                final_res.destroy()
+            return np.zeros((B, 0), np.float32)
+        n = last[1]
+        emitted_h = emitted // spc  # hidden positions fully emitted
+        if n < flush_w or (incr is not None
+                           and emitted_h - (n - flush_w) < guard):
+            # shorter than one flush window, or the stream fell too far
+            # behind: the flush would pad INSIDE the tensor, whose zeros
+            # are live through the conv and norm stacks; only a full final
+            # window has exact edges.  Decode one-shot instead.
+            wavs = self._decode_to_wavs(final_res, True)
+            final_res.destroy()
+            return wavs
+        if incr is not None:
+            # the right-aligned FULL flush window [n - flush_w, n): exact
+            # from guard positions in, and emission is past that (above)
+            lo = n - flush_w
+            if stash[0] is not None and stash[0][:3] == (lo, n, emitted):
+                tail = stash[0][3]  # speculated, its copy in flight
+            else:
+                wav_w = self._device_window_fn(flush_w)(
+                    last[0], lo, n, 0, last[2])
+                tail = copy_to_host_async(wav_w[:, emitted - lo * spc:])
+            parts.append(tail)
+        elif sd is not None and sd.emitted < sd.available:
+            parts += sd.update_dev(last[0], last[1], end_dev=last[2],
+                                   final=True)
+        final_res.destroy()
+        if not parts:
+            return np.zeros((B, 0), np.float32)
+        wav = np.concatenate([np.asarray(p) for p in parts], axis=1)
+        if rt.wire_int16:
+            wav = wav.astype(np.float32) / 32767.0
+        # each row's generation tail (emission runs to the batch's longest
+        # row; a shorter row decodes zeros there, but keep the cut exact)
+        for b, nb in enumerate(ends):
+            wav[b, nb * spc:] = 0.0
+        return wav
 
     def _device_decode(self, hid: torch.Tensor, end: torch.Tensor
                        ) -> torch.Tensor:
@@ -697,9 +998,13 @@ class Chat:
         bucket = cfg.runtime.decode_bucket // 4 or 1
         if use_decoder:
             hid = result.hiddens_dev  # (B, n_max, D)
-            B, n_max = hid.shape[0], hid.shape[1]
+            B, n_max = hid.shape[0], result.hid_n
             if n_max == 0:
                 return np.zeros((B, 0), np.float32)
+            # an engine partial holds the whole fixed-shape buffer: decode
+            # the valid prefix only (a zero-masked tail is not silent
+            # through the conv and norm stacks)
+            hid = hid[:, :n_max]
             hid = torch.nn.functional.pad(
                 hid, (0, 0, 0, _round_up(n_max, bucket) - n_max))
             return self._device_decode(hid, result.end_dev).cpu().numpy()
@@ -749,7 +1054,17 @@ class Chat:
                         max_new=params.max_new_token,
                         seed=params.manual_seed,
                         ensure_non_empty=params.ensure_non_empty))
-                outs = eng.generate(reqs, context=self.context)
+                bar = self._progress_bar(params, len(reqs), "refine_text",
+                                         per_request=True)
+                if bar is not None:
+                    for r in reqs:
+                        r.on_progress = functools.partial(bar.report,
+                                                          r.request_id)
+                try:
+                    outs = eng.generate(reqs, context=self.context)
+                finally:
+                    if bar is not None:
+                        bar.close()
                 return GenerationOutputs(
                     ids=[o.ids for o in outs],
                     finished=np.asarray(
@@ -764,7 +1079,15 @@ class Chat:
             repetition_penalty=params.repetition_penalty,
             max_new=params.max_new_token, min_new=params.min_new_token,
             seed=params.manual_seed, ensure_non_empty=params.ensure_non_empty)
-        return next(self.generator.generate(req, self.context))
+        bar = self._progress_bar(params, len(text), "refine_text",
+                                 per_request=False)
+        if bar is not None:
+            req.on_progress = functools.partial(bar.report, "batch")
+        try:
+            return next(self.generator.generate(req, self.context))
+        finally:
+            if bar is not None:
+                bar.close()
 
     def _code_inputs(self, text, params: "Chat.InferCodeParams"):
         """Tokenized inputs of the code pass: (ids, attn, tmask, temp, spk)."""
@@ -903,7 +1226,8 @@ class Chat:
 
     def _infer_code_engine(self, text, params: "Chat.InferCodeParams",
                            stream: bool = False, inputs=None, engine=None,
-                           device_stream: bool = True):
+                           device_stream: bool = True,
+                           long_chunk: bool = False):
         """Engine-backed code generation, streaming included: slot
         callbacks accumulate per-request increments and each engine chunk
         yields cumulative partials in the Generator's output format.
@@ -913,14 +1237,30 @@ class Chat:
         their hidden states on the device (``stream_hiddens_dev``: the
         engine hands a copy of each row's whole buffer) and the partials
         carry batched ``hiddens_dev``/``end_dev``, so the window vocode
-        runs on the device and only PCM goes to the host."""
+        runs on the device and only PCM goes to the host.  ``long_chunk``:
+        a bulk consumer (the pipelined decode) takes the engine's long
+        chunks between yields; a live stream keeps the short quantum."""
         eng = engine if engine is not None else self._engine_for_code()
+        bar = self._progress_bar(params, len(text), "infer_code",
+                                 per_request=True)
+
+        def attach(reqs):
+            if bar is not None:
+                for r in reqs:
+                    r.on_progress = functools.partial(bar.report,
+                                                      r.request_id)
+            return reqs
+
         if not stream:
             from .engine.batching import outputs_to_generation
 
-            outs = eng.generate(self._code_requests(text, params,
-                                                    inputs=inputs),
-                                context=self.context)
+            try:
+                outs = eng.generate(
+                    attach(self._code_requests(text, params, inputs=inputs)),
+                    context=self.context)
+            finally:
+                if bar is not None:
+                    bar.close()
             yield outputs_to_generation(outs)
             return
 
@@ -944,8 +1284,8 @@ class Chat:
                     acc_hid[b].append(np.asarray(new_hid))
             done[b] = done[b] or finished
 
-        reqs = self._code_requests(text, params, on_tokens=on_tokens,
-                                   inputs=inputs)
+        reqs = attach(self._code_requests(text, params, on_tokens=on_tokens,
+                                          inputs=inputs))
         for r in reqs:
             r.stream_hiddens_dev = device_stream
         index.update({r.request_id: b for b, r in enumerate(reqs)})
@@ -989,16 +1329,26 @@ class Chat:
                 hiddens=[np.concatenate(a) if a else Zh for a in acc_hid],
                 finished=fin, partial=not all(done))
 
-        while eng.has_unfinished():
-            if self.context.get():
-                eng.interrupt()
-                break
-            eng.step()  # the short serving quantum: live listeners
-            yield partial_out()
+        try:
+            while eng.has_unfinished():
+                if self.context.get():
+                    eng.interrupt()
+                    break
+                eng.step(long_chunk=long_chunk)
+                yield partial_out()
+        finally:
+            if bar is not None:
+                bar.close()
 
     def _infer_code(self, text: List[str], stream: bool, return_hidden: bool,
-                    params: "Chat.InferCodeParams", speculate: bool = False,
-                    speculate_from: int = 0, on_dispatch=None):
+                    params: "Chat.InferCodeParams",
+                    stream_batch_override: Optional[int] = None,
+                    speculate: bool = False, speculate_from: int = 0,
+                    on_dispatch=None):
+        """The code pass: a generator of GenerationOutputs (partials when
+        streaming).  ``stream_batch_override`` marks the pipelined decode,
+        a bulk consumer: the Generator yields every that many steps, and
+        the engine route steps long chunks."""
         cfg = self.config.gpt
         inputs = self._code_inputs(text, params)
         ids, attn, tmask, temperature, spk_vec = inputs
@@ -1010,7 +1360,8 @@ class Chat:
                     len(text), params.max_new_token, plen))
                 return self._infer_code_engine(
                     text, params, stream=stream, inputs=inputs, engine=eng,
-                    device_stream=return_hidden)
+                    device_stream=return_hidden,
+                    long_chunk=stream_batch_override is not None)
             # a prompt longer than the engine's prompt capacity falls back
             # to the one-shot generator, which buckets any length
             self.logger.info(
@@ -1024,9 +1375,16 @@ class Chat:
             max_new=params.max_new_token, min_new=params.min_new_token,
             spk_vec=spk_vec, spk_emb_ids=self.tokenizer.spk_emb_ids,
             seed=params.manual_seed, ensure_non_empty=params.ensure_non_empty,
-            stream_batch=params.stream_batch if stream else 0,
+            stream_batch=(stream_batch_override if stream_batch_override
+                          else (params.stream_batch if stream else 0)),
             return_hidden=return_hidden, speculate=speculate,
             speculate_from=speculate_from,
             on_dispatch=on_dispatch)  # the Generator's only: the engine
         # route above returns earlier (its windows are decoded at harvest)
-        return self.generator.generate(req, self.context)
+        bar = self._progress_bar(params, len(text), "infer_code",
+                                 per_request=False)
+        gen = self.generator.generate(req, self.context)
+        if bar is not None:
+            req.on_progress = functools.partial(bar.report, "batch")
+            gen = self._closing_bar(gen, bar)
+        return gen

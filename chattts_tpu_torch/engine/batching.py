@@ -147,6 +147,9 @@ class EngineRequest:
     # request's whole (max_new, D) hiddens row on the device (rows past the
     # kept count are garbage; the id counts give the length)
     stream_hiddens_dev: bool = False
+    # progress hook fn(tokens made), called at harvest from the chunk's
+    # status read (no extra synchronisation); ``show_tqdm``'s bar
+    on_progress: Optional[Callable] = None
     arrival: float = field(default_factory=time.monotonic)
     # -- engine-managed ----------------------------------------------------
     _attempts: int = 0           # ensure_non_empty retries so far
@@ -874,6 +877,8 @@ class Engine:
             if req is None or not active[s]:
                 continue
             off = req.resume_len  # tokens made before this slot tenure
+            if req.on_progress is not None:
+                req.on_progress(off + int(step_in[s]))
             fin = bool(finish[s])
             # decided before the streaming callback: a silently retried
             # attempt must not emit its finished=True notification

@@ -149,6 +149,11 @@ class GenerateRequest:
     # A streaming consumer enqueues its window vocode there.  The count is
     # exact unless generation finishes mid-chunk.
     on_dispatch: Optional[Callable] = None
+    # progress hook fn(steps run), called only where the host already reads
+    # the device (the finished flags every SYNC_EVERY steps, a streamed
+    # chunk's status, the final outputs): it adds no synchronisation.  The
+    # facade wires it to a bar for ``show_tqdm``
+    on_progress: Optional[Callable[[int], None]] = None
     # noise(step) -> (N, V) Gumbel noise of that step's draw, to reproduce
     # another sampler's draws; None draws from a torch.Generator
     noise: Optional[Callable[[int], torch.Tensor]] = None
@@ -361,7 +366,10 @@ class Generator:
                 st.step += 1
 
         def sync_stop():
-            return bool(st.finish.all()) or context.get()
+            stop = bool(st.finish.all()) or context.get()
+            if req.on_progress is not None:
+                req.on_progress(st.step)
+            return stop
 
         if req.stream_batch > 0:
             yield from self._stream_chunks(req, context, st, run_to,
@@ -409,7 +417,10 @@ class Generator:
                     and not context.get()):
                 dispatch(ahead_stop(pending[-1]))
             done = pending.popleft()
-            if done.all_finished() or context.get():
+            finished = done.all_finished()
+            if req.on_progress is not None:
+                req.on_progress(done.steps)
+            if finished or context.get():
                 break  # chunks in flight change no kept output
             if done.steps < req.max_new:
                 yield self._partial(req, done, st.hiddens)
@@ -424,6 +435,8 @@ class Generator:
 
     def _materialize(self, req, ids_buf, T0, end_idx, finish, hiddens, steps):
         end = end_idx.cpu().numpy()
+        if req.on_progress is not None:
+            req.on_progress(steps)
         fin = finish.cpu().numpy()
         gen_ids = ids_buf[:, T0:].cpu().numpy().astype(np.int32)
         out = _outputs(req, gen_ids, end, fin, hiddens, end_idx, steps)

@@ -97,6 +97,116 @@ def apply_stack(p: dict, x: torch.Tensor, cfg: ConvStackConfig
     return conv1d(y, p["conv_out"]["w"], None)
 
 
+# ---------------------------------------------------------------------------
+# Streaming (stateful) apply: O(new frames) a call, exact in steady state
+#
+# Every SAME-padded conv keeps a cache of its last (k - 1) * dilation INPUT
+# frames.  Feeding F new frames and convolving [cache | x] with no padding
+# emits exactly F output frames, at a stream offset of dilation * (k // 2)
+# frames a conv (a layer's stream frame j is its full-decode frame j -
+# cum_off).  Exactness at the stream's head needs one more rule: a layer's
+# input frames whose FULL-decode index is negative are zeroed before the
+# conv, because the full decode pads each layer's input with its own zeros
+# where the upstream stream supplies its (nonzero) left-edge outputs.
+# ``t0``, the stream index of the chunk's first frame, is a host integer
+# here, so the mask is applied only while it can zero a frame.  The stream's
+# end is flushed by the caller with a right-aligned full-window decode.
+# ---------------------------------------------------------------------------
+
+
+def conv_stream_init(batch: int, k: int, dilation: int, cin: int,
+                     dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros((batch, (k - 1) * dilation, cin), dtype=dtype,
+                       device=device)
+
+
+def _mask_head(ext: torch.Tensor, t0: int, m: int, cum_off: int
+               ) -> torch.Tensor:
+    """Zero ext frames whose full-decode index (stream - cum_off) is < 0.
+
+    ext frame e sits at stream index t0 + e - m (m = cache length)."""
+    first = t0 - m - cum_off  # full-decode index of ext frame 0
+    if first >= 0:
+        return ext
+    e = torch.arange(ext.shape[1], device=ext.device)
+    return torch.where((first + e >= 0)[None, :, None], ext, 0.0)
+
+
+def conv1d_stream(x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None, *, dilation: int = 1,
+                  groups: int = 1, t0: int | None = None, cum_off: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Valid conv over [cache | x]; returns (F new frames, new cache)."""
+    F_new = x.shape[1]
+    ext = torch.cat([cache, x], dim=1)
+    if t0 is not None:
+        ext = _mask_head(ext, t0, cache.shape[1], cum_off)
+    y = conv1d(ext, w, b, dilation=dilation, groups=groups)
+    return y, ext[:, F_new:]
+
+
+def apply_block_stream(p: dict, x: torch.Tensor, cache: torch.Tensor, *,
+                       kernel: int, dilation: int = 1, t0: int | None = None,
+                       cum_off: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming ConvNeXt block: the residual taps the input stream at the
+    conv's offset, so both terms sit at the same full-decode index."""
+    dim = x.shape[-1]
+    F_new = x.shape[1]
+    pad = dilation * (kernel // 2)
+    ext = torch.cat([cache, x], dim=1)  # (B, F + 2 * pad, C)
+    if t0 is not None:
+        ext = _mask_head(ext, t0, cache.shape[1], cum_off)
+    y = conv1d(ext, p["dwconv"]["w"], p["dwconv"]["b"], dilation=dilation,
+               groups=dim)  # valid: (B, F, C)
+    y = layer_norm(y, p["norm"]["scale"], p["norm"]["bias"])
+    y = gelu(y @ p["pw1"]["w"] + p["pw1"]["b"])
+    y = y @ p["pw2"]["w"] + p["pw2"]["b"]
+    if p.get("gamma") is not None:
+        y = y * p["gamma"]
+    return ext[:, pad:pad + F_new] + y, ext[:, F_new:]
+
+
+def stack_stream_offset(cfg: ConvStackConfig) -> int:
+    """Cumulative stream offset (frames) of apply_stack_stream's output."""
+    return 1 + 1 + cfg.n_layer * cfg.dilation * (cfg.kernel // 2)
+
+
+def stack_stream_init(batch: int, cfg: ConvStackConfig, dtype=torch.float32,
+                      device=None) -> dict:
+    return {
+        "in0": conv_stream_init(batch, 3, 1, cfg.idim, dtype, device),
+        "in1": conv_stream_init(batch, 3, 1, cfg.bn_dim, dtype, device),
+        "blocks": [conv_stream_init(batch, cfg.kernel, cfg.dilation,
+                                    cfg.hidden, dtype, device)
+                   for _ in range(cfg.n_layer)],
+    }
+
+
+def apply_stack_stream(p: dict, x: torch.Tensor, state: dict,
+                       cfg: ConvStackConfig, t0: int | None = None,
+                       cum_off: int = 0) -> tuple[torch.Tensor, dict, int]:
+    """(B, F, idim) new frames -> (B, F, odim) stream frames, the new
+    state, and the cumulative offset downstream (chained stacks keep
+    masking with it)."""
+    bpad = cfg.dilation * (cfg.kernel // 2)
+    y, c_in0 = conv1d_stream(x, state["in0"], p["conv_in0"]["w"],
+                             p["conv_in0"]["b"], t0=t0, cum_off=cum_off)
+    y = gelu(y)
+    cum_off += 1
+    y, c_in1 = conv1d_stream(y, state["in1"], p["conv_in1"]["w"],
+                             p["conv_in1"]["b"], t0=t0, cum_off=cum_off)
+    cum_off += 1
+    new_blocks = []
+    for bp, bc in zip(p["blocks"], state["blocks"]):
+        y, nc = apply_block_stream(bp, y, bc, kernel=cfg.kernel,
+                                   dilation=cfg.dilation, t0=t0,
+                                   cum_off=cum_off)
+        new_blocks.append(nc)
+        cum_off += bpad
+    y = conv1d(y, p["conv_out"]["w"], None)  # k 1: no state
+    return y, {"in0": c_in0, "in1": c_in1, "blocks": new_blocks}, cum_off
+
+
 def stack_torch_key_map(path: str, prefix: str, cfg: ConvStackConfig) -> dict:
     """Tree path -> (reference state-dict key, transform) for a stack.
 

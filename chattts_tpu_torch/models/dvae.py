@@ -112,9 +112,43 @@ def encode_audio(params: dict, audio: torch.Tensor, cfg: DVAEConfig,
     return gfsq.quantize(params["vq"], x, cfg.vq)
 
 
+def decoder_stream_offset(cfg: DecoderConfig) -> int:
+    """Mel-stream offset of decode_from_hidden_stream (stack + out_conv)."""
+    return convnext.stack_stream_offset(cfg.stack) + 1
+
+
+def decoder_stream_init(batch: int, cfg: DecoderConfig, device=None) -> dict:
+    return {
+        "stack": convnext.stack_stream_init(batch, cfg.stack, device=device),
+        "out": convnext.conv_stream_init(batch, 3, 1, cfg.stack.odim,
+                                         device=device),
+    }
+
+
+def decode_from_hidden_stream(params: dict, hidden: torch.Tensor,
+                              state: dict, cfg: DecoderConfig,
+                              t0: int | None = None
+                              ) -> tuple[torch.Tensor, dict, int]:
+    """Streaming hidden -> mel: (B, Fh, D) new positions -> (B, 2 * Fh,
+    n_mels) mel stream frames, the new state and the cumulative offset
+    downstream.
+
+    ``t0`` is the MEL-frame stream index of this chunk's first frame (2x
+    the hidden position); the interleave is frame-local, so it adds no
+    state and no offset.  ``coef`` scales after ``out_conv``."""
+    y = interleave_groups(hidden)  # (B, 2 * Fh, idim)
+    y, stack_state, cum = convnext.apply_stack_stream(
+        params["decoder"], y, state["stack"], cfg.stack, t0=t0)
+    mel, out_c = convnext.conv1d_stream(
+        y, state["out"], params["out_conv"]["w"], None, t0=t0, cum_off=cum)
+    cum += 1
+    mel = mel * params["coef"][None, None, :]
+    return mel, {"stack": stack_state, "out": out_c}, cum
+
+
 def coef_string(params: dict) -> str:
     """Portable b14 form of the mel coefficients."""
-    return codecs.encode_coef(params["coef"].cpu().numpy().astype(np.float32))
+    return codecs.encode_coef(params["coef"].cpu().to(torch.float32).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,10 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..config import GPTConfig
-from ..utils.io import to_tensor
+from ..utils.io import as_torch, to_tensor
 
 
 def init_params(gen: torch.Generator, cfg: GPTConfig,
@@ -92,14 +91,16 @@ def torch_key_map(cfg: GPTConfig) -> dict:
 def load_from_state(state: dict, cfg: GPTConfig) -> dict:
     """A folded reference Embed state dict (``utils/io.fold_weight_norm``)
     -> the tree of CPU tensors (``utils/io.to_tensor``): the per-codebook
-    tables and heads stacked, the heads transposed to (D, V)."""
+    tables and heads stacked, the heads transposed to (D, V).  Leaves keep
+    the checkpoint's float dtype (bf16 included)."""
+    def t(key):
+        return as_torch(state[key])
+
     return {
-        "emb_text": to_tensor(np.asarray(state["emb_text.weight"])),
-        "emb_code": to_tensor(np.stack([
-            np.asarray(state[f"emb_code.{q}.weight"])
-            for q in range(cfg.num_vq)])),
-        "head_text": to_tensor(np.asarray(state["head_text.weight"]).T),
-        "head_code": to_tensor(np.stack([
-            np.asarray(state[f"head_code.{q}.weight"]).T
-            for q in range(cfg.num_vq)])),
+        "emb_text": to_tensor(t("emb_text.weight")),
+        "emb_code": to_tensor(torch.stack([
+            t(f"emb_code.{q}.weight") for q in range(cfg.num_vq)])),
+        "head_text": to_tensor(t("head_text.weight").T),
+        "head_code": to_tensor(torch.stack([
+            t(f"head_code.{q}.weight").T for q in range(cfg.num_vq)])),
     }

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import GPTConfig
+from ..utils.io import as_torch
 
 # additive attention-mask value: large-finite so fully-masked softmax rows
 # stay NaN-free (see prefill_bias)
@@ -209,7 +210,8 @@ def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur,
 
 
 def load_from_state(state: dict, cfg: GPTConfig) -> dict:
-    """An HF LlamaModel state dict of numpy arrays ('model.' prefix already
+    """An HF LlamaModel state dict of numpy arrays or bf16 tensors
+    (``utils/io.load_safetensors``; the 'model.' prefix already
     stripped) -> the tree above, on the CPU: q/k/v fused into ``wqkv`` (D,
     3, H, Dh) and gate/up into ``wgu`` (D, 2, I), matrices in bfloat16,
     norms in float32.  Each leaf is built from the state on its own, so the
@@ -218,22 +220,23 @@ def load_from_state(state: dict, cfg: GPTConfig) -> dict:
                    cfg.intermediate_size)
 
     def t(key):  # torch Linear (out, in) -> (in, out)
-        return np.asarray(state[key]).T
+        return as_torch(state[key]).T
 
-    def mat(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+    def mat(a):  # one contiguous bf16 copy of its own
+        return torch.empty(a.shape, dtype=torch.bfloat16).copy_(a)
 
     def vec(key):
-        return torch.from_numpy(np.asarray(state[key], np.float32).copy())
+        a = as_torch(state[key])
+        return torch.empty(a.shape, dtype=torch.float32).copy_(a)
 
     layers = []
     for i in range(cfg.num_hidden_layers):
         p = f"layers.{i}."
-        qkv = np.stack([t(p + "self_attn.q_proj.weight"),
-                        t(p + "self_attn.k_proj.weight"),
-                        t(p + "self_attn.v_proj.weight")], axis=1)
-        gu = np.stack([t(p + "mlp.gate_proj.weight"),
-                       t(p + "mlp.up_proj.weight")], axis=1)
+        qkv = torch.stack([t(p + "self_attn.q_proj.weight"),
+                           t(p + "self_attn.k_proj.weight"),
+                           t(p + "self_attn.v_proj.weight")], dim=1)
+        gu = torch.stack([t(p + "mlp.gate_proj.weight"),
+                          t(p + "mlp.up_proj.weight")], dim=1)
         layers.append({
             "attn": {"wqkv": mat(qkv.reshape(D, 3, H, Dh)),
                      "wo": mat(t(p + "self_attn.o_proj.weight"))},

@@ -61,6 +61,51 @@ def repetition_penalty(scores: torch.Tensor, window_ids: torch.Tensor,
     return torch.where(scores < 0, scores * alpha, scores / alpha)
 
 
+MIN_KEEP = 3  # top-p and top-k always keep the 3 largest scores
+
+
+def _top_p_removed(s_asc: torch.Tensor, top_p: Rows) -> torch.Tensor:
+    """Top-p in sorted space: over ascending scores (N, V), True where the
+    ascending prefix whose cumulative mass is at most 1 - p goes (the
+    ``MIN_KEEP`` largest stay); 1 - p in f32, as the reference computes
+    it."""
+    N, V = s_asc.shape
+    cum = torch.cumsum(torch.softmax(s_asc, dim=-1), dim=-1)
+    thr = 1.0 - _per_row(top_p, N, torch.float32, s_asc.device)[:, None]
+    pos = torch.arange(V, device=s_asc.device)[None, :]
+    return (cum <= thr) & (pos < V - MIN_KEEP)
+
+
+def _top_k_removed(s_asc: torch.Tensor, top_k: Rows) -> torch.Tensor:
+    """Top-k in sorted space: True where a score is strictly below the
+    k-th largest, k at least ``MIN_KEEP``.  Applied after top-p it removes
+    the same columns as on the masked scores (top-p removes an ascending
+    prefix)."""
+    N, V = s_asc.shape
+    k = _per_row(top_k, N, torch.long, s_asc.device).clamp(MIN_KEEP, V)
+    return s_asc < s_asc.gather(1, (V - k)[:, None])
+
+
+def _unsorted(removed: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(removed).scatter(1, order, removed)
+
+
+def top_p_mask(scores: torch.Tensor, top_p: Rows) -> torch.Tensor:
+    """HF ``TopPLogitsWarper`` as a mask (True = remove), ascending-sort
+    semantics; ``top_p`` is a scalar or one value per row.  The rule is
+    :func:`sample`'s own (``_top_p_removed``)."""
+    s_asc, order = torch.sort(scores, dim=-1, stable=True)
+    return _unsorted(_top_p_removed(s_asc, top_p), order)
+
+
+def top_k_mask(scores: torch.Tensor, top_k: Rows) -> torch.Tensor:
+    """HF ``TopKLogitsWarper`` as a mask (True = remove); ``top_k`` is a
+    scalar or one value per row.  The rule is :func:`sample`'s own
+    (``_top_k_removed``)."""
+    s_asc, order = torch.sort(scores, dim=-1, stable=True)
+    return _unsorted(_top_k_removed(s_asc, top_k), order)
+
+
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(U)), U in (0, 1)."""
     u = torch.rand(shape, generator=generator, device=device)
@@ -91,26 +136,16 @@ def sample(logits: torch.Tensor, params: SamplingParams,
                                     params.repetition_penalty, max_penalized)
 
     s_asc, order = torch.sort(scores, dim=-1, stable=True)
-    pos = torch.arange(V, device=logits.device)[None, :]
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
-
-    # top-p: remove the ascending prefix whose cumulative mass <= 1 - p,
-    # always keeping the 3 largest
-    cum = torch.cumsum(torch.softmax(s_asc, dim=-1), dim=-1)
-    # 1 - p in f32, as the reference computes it
     dev = logits.device
-    thr = 1.0 - _per_row(params.top_p, N, torch.float32, dev)[:, None]
-    s_asc = torch.where((cum <= thr) & (pos < V - 3), neg_inf, s_asc)
-    # top-k: strictly below the k-th largest goes (min_keep 3)
-    k = _per_row(params.top_k, N, torch.long, dev).clamp(3, V)
-    s_asc = torch.where(s_asc < s_asc.gather(1, (V - k)[:, None]), neg_inf,
-                        s_asc)
+    removed = (_top_p_removed(s_asc, params.top_p)
+               | _top_k_removed(s_asc, params.top_k))
     # EOS suppression while step < min_new, found by its sorted position
     eos_sup = (_per_row(step, N, torch.long, dev)
                < _per_row(params.min_new, N, torch.long, dev))
     eos_rows = _per_row(eos_token, N, torch.long, dev)
-    s_asc = torch.where(eos_sup[:, None] & (order == eos_rows[:, None]),
-                        neg_inf, s_asc)
+    removed |= eos_sup[:, None] & (order == eos_rows[:, None])
+    s_asc = torch.where(removed, torch.tensor(float("-inf"), device=dev),
+                        s_asc)
 
     if noise is None:
         noise = gumbel((N, V), generator, logits.device)

@@ -7,8 +7,10 @@ a triangular HTK mel filterbank (numpy, as the reference builds it) and
 ``log(clip(mel, 1e-5))``.  The inverse STFT has ``torch.istft`` semantics:
 overlap-add, division by the squared-window sum clamped at 1e-11, and the
 centre padding trimmed; the overlap-add is the JAX package's sum of
-``n_fft // hop`` shifted slices.  The reference's spectral ops are XLA, not
-Pallas kernels, so ``torch.fft`` serves here (cuFFT on the card).
+``n_fft // hop`` shifted slices; ``istft_stream`` is the same overlap-add
+on a carry, for the pipelined one-shot decode.  The reference's spectral
+ops are XLA, not Pallas kernels, so ``torch.fft`` serves here (cuFFT on the
+card).
 """
 
 from __future__ import annotations
@@ -77,19 +79,72 @@ def log_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     return torch.log(torch.clamp(mel, min=1e-5))
 
 
+def _real_edge_bins(spec: torch.Tensor, n_fft: int, dim: int
+                    ) -> torch.Tensor:
+    """``spec`` with the imaginary parts of its DC and Nyquist bins (along
+    ``dim``) dropped.  A real signal's DC and Nyquist bins are real; FFT
+    libraries disagree on what to do with their imaginary parts: pocketfft
+    (the CPU, and the reference's XLA on the CPU) ignores them, cuFFT does
+    not, and Vocos' head gives them random phases."""
+    spec = spec.clone()
+    for k in (0, n_fft // 2):
+        edge = spec.select(dim, k)
+        edge.copy_(edge.real)
+    return spec
+
+
+def istft_stream_init(batch: int, n_fft: int, hop: int, device=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(numerator carry (B, n_fft - hop), window-sum carry (n_fft - hop))."""
+    return (torch.zeros((batch, n_fft - hop), dtype=torch.float32,
+                        device=device),
+            torch.zeros((n_fft - hop,), dtype=torch.float32, device=device))
+
+
+def istft_stream(spec: torch.Tensor, carry, n_fft: int, hop: int):
+    """Streaming overlap-add ISTFT: feed F frames, emit F * hop RAW samples.
+
+    spec: complex (B, F, n_fft // 2 + 1), frames time-major.  The carry
+    holds the partial overlap sums (numerator and squared-window sum) of
+    the last n_fft - hop raw positions; a zero carry gives the full istft's
+    left edge exactly.  The samples are the full istft's RAW timeline
+    (before the centre trim): the caller drops the first n_fft // 2 once.
+    The stream never finalizes; the utterance's tail comes from the
+    caller's full-window flush.  DC and Nyquist are made real as in
+    :func:`istft`.  Returns (samples (B, F * hop) f32, the new carry)."""
+    if n_fft % hop != 0:
+        raise ValueError("istft requires hop | n_fft")
+    ratio = n_fft // hop
+    B, F, _ = spec.shape
+    win = torch.from_numpy(hann_window(n_fft)).to(spec.device)
+    frames = torch.fft.irfft(_real_edge_bins(spec, n_fft, 2), n=n_fft,
+                             dim=-1) * win                   # (B, F, n_fft)
+    wsq = (win * win).reshape(ratio, hop)
+    pieces = frames.reshape(B, F, ratio, hop)
+    out = torch.zeros((B, F + ratio - 1, hop), dtype=frames.dtype,
+                      device=spec.device)
+    den = torch.zeros((F + ratio - 1, hop), dtype=frames.dtype,
+                      device=spec.device)
+    for j in range(ratio):
+        out[:, j:j + F] += pieces[:, :, j]
+        den[j:j + F] += wsq[j]
+    num_c, den_c = carry
+    out[:, :ratio - 1] += num_c.reshape(B, ratio - 1, hop)
+    den[:ratio - 1] += den_c.reshape(ratio - 1, hop)
+    emit = (out[:, :F].reshape(B, F * hop)
+            / torch.clamp(den[:F].reshape(F * hop), min=1e-11)[None, :])
+    new_carry = (out[:, F:].reshape(B, n_fft - hop),
+                 den[F:].reshape(n_fft - hop))
+    return emit.to(torch.float32), new_carry
+
+
 def istft(spec: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Complex spec (B, F, T) -> audio (B, (T - 1) * hop) f32."""
     if n_fft % hop != 0:
         raise ValueError("istft requires hop | n_fft")
     ratio = n_fft // hop
     B, _, T = spec.shape
-    # a real signal's DC and Nyquist bins are real.  Their imaginary parts
-    # are dropped here because FFT libraries disagree on them: pocketfft
-    # (the CPU, and the reference's XLA on the CPU) ignores them, cuFFT
-    # does not, and Vocos' head gives them random phases
-    spec = spec.clone()
-    spec[:, 0] = spec[:, 0].real
-    spec[:, n_fft // 2] = spec[:, n_fft // 2].real
+    spec = _real_edge_bins(spec, n_fft, 1)
     win = torch.from_numpy(hann_window(n_fft)).to(spec.device)
     frames = torch.fft.irfft(spec.transpose(1, 2), n=n_fft, dim=-1) * win
     pieces = frames.reshape(B, T, ratio, hop)

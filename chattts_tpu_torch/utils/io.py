@@ -6,14 +6,17 @@ directory.  This module reads and writes the safetensors format itself, on
 numpy alone: an 8-byte little-endian header length, a JSON header of
 ``{name: {"dtype", "shape", "data_offsets"}}`` (plus ``__metadata__``), then
 the raw bytes.  F64, F32, F16 and the integer and bool types are read and
-written; numpy has no bfloat16, so a BF16 tensor raises a ``TypeError`` that
-names it (as ``safetensors.numpy`` does, the JAX package's reader).
+written as numpy arrays.  numpy has no bfloat16, so a BF16 tensor is read as
+its uint16 bits and handed on as a ``torch.bfloat16`` tensor of those bits:
+the leaves the JAX package's loader gives (its process has numpy's bfloat16
+registered by ``ml_dtypes``).  Every function below takes both kinds.
 
 Per-module key maps (``models/*``) say where each checkpoint tensor goes:
 ``tree_path -> (torch_key, transform)``, the transform turning torch's
 layouts into the trees' (convs to (k, in, out), linears to (in, out)).
 Leaves come out as CPU tensors in the dtype ``jnp.asarray`` gives the JAX
-package with 64-bit types off: float64 becomes float32, int64 int32.
+package with 64-bit types off: float64 becomes float32, int64 int32, bf16
+stays bf16.
 """
 
 from __future__ import annotations
@@ -37,17 +40,20 @@ _MAX_HEADER = 100 << 20  # the safetensors format's own bound on the header
 
 
 def _np_dtype(name: str, key: str) -> np.dtype:
+    if name == "BF16":  # its bits; load_safetensors makes the bf16 tensor
+        return np.dtype("<u2")
     if name not in _DTYPES:
         raise TypeError(f"safetensors dtype {name} of tensor {key!r} is not "
                         "read: numpy has no such type")
     return np.dtype(_DTYPES[name]).newbyteorder("<")
 
 
-def load_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """A safetensors file -> {name: numpy array}, in the file's dtypes.
+def load_safetensors(path: str) -> Dict[str, object]:
+    """A safetensors file -> {name: numpy array}, in the file's dtypes; a
+    BF16 tensor comes as a ``torch.bfloat16`` tensor over its bits.
 
     The data is read once into one buffer; the arrays are views of it.
-    Raises ``TypeError`` for a dtype numpy cannot hold (BF16, F8) and
+    Raises ``TypeError`` for a dtype neither can hold (F8) and
     ``ValueError`` for a header or offsets that do not fit the file."""
     with open(path, "rb") as f:
         head = f.read(8)
@@ -70,8 +76,12 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
             raise ValueError(f"{path}: tensor {key!r} offsets {lo}..{hi} do "
                              f"not hold {info['dtype']} {list(shape)} in "
                              f"{buf.size} data bytes")
-        out[key] = (np.frombuffer(buf, dtype=dt, count=count, offset=lo)
-                    if count else np.zeros(0, dt)).reshape(shape)
+        arr = (np.frombuffer(buf, dtype=dt, count=count, offset=lo)
+               if count else np.zeros(0, dt)).reshape(shape)
+        if info["dtype"] == "BF16":
+            arr = torch.from_numpy(arr.astype(np.uint16)).view(
+                torch.bfloat16)
+        out[key] = arr
     return out
 
 
@@ -103,26 +113,34 @@ def save_safetensors(path: str, tensors: Mapping[str, object]) -> None:
                                      copy=False).tobytes())
 
 
+def as_torch(arr) -> torch.Tensor:
+    """A numpy array or a tensor (a bf16 leaf) -> a tensor over the same
+    memory, in the same dtype."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.from_numpy(np.asarray(arr))
+
+
 def to_tensor(arr) -> torch.Tensor:
-    """A numpy array -> a contiguous CPU tensor of its own, in the dtype
-    ``jnp.asarray`` gives with 64-bit types off."""
-    a = np.asarray(arr)
-    if a.dtype == np.float64:
-        a = a.astype(np.float32)
-    elif a.dtype == np.int64:
-        a = a.astype(np.int32)
-    return torch.from_numpy(np.array(a, copy=True, order="C"))
+    """A numpy array or a tensor -> a contiguous CPU tensor of its own, in
+    the dtype ``jnp.asarray`` gives with 64-bit types off."""
+    t = as_torch(arr)
+    if t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    elif t.dtype == torch.int64:
+        t = t.to(torch.int32)
+    return t.contiguous().clone()
 
 
-def _transform(arr: np.ndarray, how: str) -> np.ndarray:
+def _transform(arr, how: str):
     if how == "":
         return arr
     if how == "T":  # torch Linear (out, in) -> (in, out)
         return arr.T
     if how == "C":  # torch Conv1d (out, in, k) -> (k, in, out)
-        return arr.transpose(2, 1, 0)
+        return as_torch(arr).permute(2, 1, 0)
     if how == "D":  # torch depthwise Conv1d (dim, 1, k) -> (k, 1, dim)
-        return arr.transpose(2, 1, 0)
+        return as_torch(arr).permute(2, 1, 0)
     if how == "SQUEEZE":
         return arr.reshape(-1)
     raise ValueError(f"unknown transform {how!r}")
@@ -150,7 +168,7 @@ def get_path(tree, path: str):
 
 def apply_key_map(
     params: dict,
-    state: Mapping[str, np.ndarray],
+    state: Mapping[str, object],
     key_map: Dict[str, Tuple[str, str]],
 ) -> dict:
     """Fill ``params`` (in place) from a torch state dict using ``key_map``;
@@ -163,11 +181,12 @@ def apply_key_map(
             # by fold_weight_norm before we get here.
             missing.append(torch_key)
             continue
-        arr = _transform(np.asarray(state[torch_key]), how)
+        arr = _transform(as_torch(state[torch_key]), how)
         expected = get_path(params, tree_path)
         if expected is not None and tuple(expected.shape) != tuple(arr.shape):
             raise ValueError(
-                f"shape mismatch at {tree_path}: checkpoint {arr.shape} vs "
+                f"shape mismatch at {tree_path}: checkpoint "
+                f"{tuple(arr.shape)} vs "
                 f"model {tuple(expected.shape)}"
             )
         set_path(params, tree_path, to_tensor(arr))
@@ -176,25 +195,36 @@ def apply_key_map(
     return params
 
 
-def fold_weight_norm(state: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def _float64(arr) -> np.ndarray:
+    if isinstance(arr, torch.Tensor):
+        return arr.to(torch.float64).numpy()
+    return np.asarray(arr, dtype=np.float64)
+
+
+def fold_weight_norm(state: Mapping[str, object]) -> Dict[str, object]:
     """Fold torch ``weight_norm`` parametrizations into plain weights.
 
     The reference Embed heads are weight-normed; their checkpoints carry
     ``<name>.parametrizations.weight.original0`` (g) and ``...original1``
     (v) with ``weight = g * v / ||v||`` (norm over dim 1+), computed here in
-    float64 and cast back to the checkpoint's dtype.
+    float64 and cast back to the checkpoint's dtype.  A bf16 weight is
+    rounded from float64 through float32, as ``ml_dtypes`` rounds it for
+    the JAX package (1 + 2^-8 + 2^-30 becomes 1.0), and torch's cast does.
     """
     out = dict(state)
     for key in list(state.keys()):
         marker = ".parametrizations.weight.original0"
         if key.endswith(marker):
             base = key[: -len(marker)]
-            g = np.asarray(state[key], dtype=np.float64)
-            v = np.asarray(state[base + ".parametrizations.weight.original1"],
-                           dtype=np.float64)
+            g = _float64(state[key])
+            v = _float64(state[base + ".parametrizations.weight.original1"])
             axes = tuple(range(1, v.ndim))
             norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
-            out[base + ".weight"] = (g * v / norm).astype(state[key].dtype)
+            w = g * v / norm
+            out[base + ".weight"] = (
+                torch.from_numpy(w).to(state[key].dtype)
+                if isinstance(state[key], torch.Tensor)
+                else w.astype(state[key].dtype))
             del out[key]
             del out[base + ".parametrizations.weight.original1"]
     return out

@@ -103,6 +103,15 @@
    and 8 blocking requests at once, an aborted stream, and the port's
    HTTP server on 127.0.0.1 (``phase_serving``).
 
+8. The pipelined one-shot decode (``phase_pipelined``): ``Chat.infer``
+   with ``pipelined_decode=True`` on the 4 texts at 512 new tokens, on the
+   Generator (K3) and on the engine route (K2+K3), at ``pipeline_chunk``
+   96 (the conv-state chain) and 48 (the exact-guard windows), each a main
+   path with kept calls held to the plain version; the branch that ran is
+   asserted, and each wav is held to the one-shot decode of the same
+   call's hiddens with TF32 off and on.  Busy shares of profiled calls,
+   and the walls of plain calls of both chunks and the one-shot path in
+   turns.
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``.
@@ -2547,6 +2556,211 @@ def phase_stream(chat, engine_chat, kernels, launches):
           f"{counts}, kept calls' hidden max-abs {errs}")
 
 
+PIPE_STEPS = 512        # new tokens a row: past every flush window
+# the pipelined wav against the one-shot decode of the same hiddens, of
+# its peak: measured 7.8e-7 to 1.1e-6 with TF32 off (the script's setting:
+# float32 sums in another order) and 5.5e-4 to 7.4e-4 with TF32 on (cuDNN
+# picks other algorithms, each in TF32, for a chunk's frames than for the
+# whole utterance's), on the H100 (PERF.md); about ten times that
+PIPE_TOL_OF_PEAK = {"tf32 off": 1e-5, "tf32 on": 5e-3}
+
+
+def phase_pipelined(chat, engine_chat, kernels, launches):
+    """``Chat.infer`` with ``pipelined_decode=True`` on the 4 texts, no
+    refine pass, ``min_new_token = max_new_token = 512``, on the Generator
+    (K3) and on the engine route (K2+K3), at ``pipeline_chunk`` 96 (2 * 96
+    frames cover the conv stacks' mel offset of 102: the incremental
+    chain) and 48 (the windowed walk).  Each run is a main path
+    (_main_path_run: launches counted, the first and the 49th step kept
+    and held to the plain version, the errors folded into ``kernels``).
+    Checks which branch ran (the ``_incr_fns`` key and the flush window's
+    width, or no chain and the walk's window width), that no one-shot
+    fallback ran, and the batch wav (before the strip) against the
+    one-shot decode (``_decode_to_wavs``) of the same call's hiddens,
+    within ``PIPE_TOL_OF_PEAK`` of its peak; again with TF32 on.  Prints
+    the card's busy share in a profiled call at chunk 96 and on the
+    one-shot path, then the walls and audio s per wall s of plain calls
+    of both chunks and the one-shot path in turns
+    (``_print_pipelined_walls``; a main-path run carries its wrappers)."""
+    import os
+
+    import numpy as np
+    import torch
+    from chattts_tpu_torch.engine.generate import GenerationOutputs
+    from chattts_tpu_torch.engine.streaming import plan_windows
+
+    # the run picks the branch through the config; the environment
+    # variable would override it
+    os.environ.pop("CHATTTS_PIPELINED_DECODE", None)
+    infer = _pipe_infer
+
+    def recorded(c, run):
+        """run() with the batch wav ``_generate_wavs`` returned, the last
+        code-pass output's hiddens, the window widths asked for and the
+        one-shot decodes made."""
+        rec = {"widths": [], "one_shot": 0}
+        gw, ic = c._generate_wavs, c._infer_code
+        wf, dw = c._device_window_fn, c._decode_to_wavs
+
+        def generate_wavs(*a, **k):
+            rec["wav"] = gw(*a, **k)
+            return rec["wav"]
+
+        def infer_code(*a, **k):
+            for out in ic(*a, **k):
+                rec["final"] = (out.hiddens_dev, out.end_dev, out.hid_n)
+                yield out
+
+        def window_fn(width):
+            rec["widths"].append(width)
+            return wf(width)
+
+        def decode_to_wavs(*a, **k):
+            rec["one_shot"] += 1
+            return dw(*a, **k)
+
+        c._generate_wavs, c._infer_code = generate_wavs, infer_code
+        c._device_window_fn, c._decode_to_wavs = window_fn, decode_to_wavs
+        try:
+            return run(), rec
+        finally:
+            del c._generate_wavs, c._infer_code
+            del c._device_window_fn, c._decode_to_wavs
+
+    def held(c, rec):
+        """max-abs of the pipelined batch wav against the one-shot decode of
+        its hiddens, and that decode's peak."""
+        hid, end, n = rec["final"]
+        ref = c._decode_to_wavs(GenerationOutputs(
+            ids=[], finished=np.ones(len(TEXTS), bool), hiddens_dev=hid,
+            end_dev=end, n_valid=n), True)
+        got = rec["wav"]
+        hop = c.config.vocos.hop_length
+        check(got.shape == ref.shape == (len(TEXTS), (2 * n - 1) * hop),
+              f"pipelined wav {got.shape}, one-shot {ref.shape}, n {n}")
+        check(bool(np.isfinite(got).all()), "pipelined wav is not finite")
+        return float(np.abs(got - ref).max()), float(np.abs(ref).max())
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    for route, c in (("generator", chat), ("engine", engine_chat)):
+        saved = c.config
+        try:
+            for chunk in (96, 48):
+                _, guard, window = plan_windows(saved.decoder.stack,
+                                                saved.vocos, chunk)
+                flush_w = -(-(2 * chunk + guard + 8) // 16) * 16
+                c.config = saved.with_runtime(pipelined_decode=True,
+                                              pipeline_chunk=chunk)
+                title = f"pipelined infer ({route}, chunk {chunk})"
+                infer(c)  # first call: this chunk's shapes cold
+                (wavs, rec), wall, counts, errs, steps = _main_path_run(
+                    c, lambda: recorded(c, lambda: infer(c)), title, 2)
+                for v in counts:
+                    _fold(kernels, launches, {v: counts[v]}, v, errs[v])
+                _check_wavs(wavs)
+                incr = any(key[:2] == (len(TEXTS), chunk)
+                           for key in c._incr_fns)
+                branch = "incremental" if incr else "windowed"
+                check(incr == (chunk == 96) and rec["one_shot"] == 0
+                      and set(rec["widths"]) == {flush_w if incr
+                                                 else window},
+                      f"{title}: branch {branch}, window widths "
+                      f"{sorted(set(rec['widths']))}, one-shot decodes "
+                      f"{rec['one_shot']}")
+                err, peak = held(c, rec)
+                torch.backends.cudnn.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    _, rec_on = recorded(c, lambda: infer(c))
+                    err_on, peak_on = held(c, rec_on)
+                finally:
+                    (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32) = flags
+                print(f"{title}: the {branch} branch (window widths "
+                      f"{sorted(set(rec['widths']))}), steps {steps}, wall "
+                      f"as a main path {wall:.3f} s; against the one-shot "
+                      f"decode "
+                      f"of its hiddens: max-abs {err:.3e} of peak "
+                      f"{peak:.3e} ({err / peak:.2e}) with TF32 off, "
+                      f"{err_on:.3e} of {peak_on:.3e} ({err_on / peak_on:.2e})"
+                      f" with TF32 on; launches {counts}, kept calls' hidden "
+                      f"max-abs {errs}")
+                check(err <= PIPE_TOL_OF_PEAK["tf32 off"] * peak,
+                      f"{title}: {err / peak:.2e} of the peak from the "
+                      f"one-shot decode with TF32 off")
+                check(err_on <= PIPE_TOL_OF_PEAK["tf32 on"] * peak_on,
+                      f"{title}: {err_on / peak_on:.2e} of the peak from the "
+                      f"one-shot decode with TF32 on")
+                if chunk == 96:
+                    device_s, prof_wall, rows = _device_profile(
+                        lambda: infer(c))
+                    _print_profile(f"{title} profile", device_s, rows)
+                    print(f"{title}: card busy {device_s:.3f} s of the "
+                          f"profiled call's {prof_wall:.3f} s wall "
+                          f"({100 * device_s / prof_wall:.1f}%)")
+            c.config = saved.with_runtime(pipelined_decode=False)
+            infer(c)
+            device_s, prof_wall, rows = _device_profile(lambda: infer(c))
+            _print_profile(f"one-shot infer ({route}) profile", device_s,
+                           rows)
+            print(f"one-shot infer ({route}), the same request: card busy "
+                  f"{device_s:.3f} s of the profiled call's {prof_wall:.3f}"
+                  f" s wall ({100 * device_s / prof_wall:.1f}%)")
+        finally:
+            c.config = saved
+        _print_pipelined_walls(route, c, infer, rounds=5)
+
+
+def _print_pipelined_walls(route, c, infer, rounds):
+    """Walls of plain calls of ``infer(c)`` in turns, ``rounds`` times:
+    the one-shot path and the pipeline at chunk 96 and at 48; prints each
+    one's median, range and audio s per wall s, and its median against
+    the one-shot path's."""
+    import numpy as np
+    import torch
+
+    variants = {"one-shot": dict(pipelined_decode=False),
+                "pipelined 96": dict(pipelined_decode=True,
+                                     pipeline_chunk=96),
+                "pipelined 48": dict(pipelined_decode=True,
+                                     pipeline_chunk=48)}
+    saved = c.config
+    walls = {k: [] for k in variants}
+    try:
+        for _ in range(rounds):
+            for name, rt in variants.items():
+                c.config = saved.with_runtime(**rt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wavs = infer(c)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+    finally:
+        c.config = saved
+    audio_s = sum(w.size for w in wavs) / saved.vocos.mel.sample_rate
+    one = float(np.median(walls["one-shot"]))
+    print(f"pipelined against one-shot ({route}, {PIPE_STEPS} steps, "
+          f"{audio_s:.2f} s of audio; plain calls in turns, {rounds} "
+          f"rounds; median (min..max) wall, audio s / wall s at the "
+          f"median, against the one-shot median): " + "; ".join(
+              f"{k} {np.median(v):.3f} s ({min(v):.3f}..{max(v):.3f}), "
+              f"{audio_s / np.median(v):.3f}, "
+              f"{100 * (np.median(v) / one - 1):+.1f}%"
+              for k, v in walls.items()))
+
+
+def _pipe_infer(c):
+    """The pipelined phase's request: the 4 texts, no refine pass,
+    PIPE_STEPS steps a row."""
+    from chattts_tpu_torch import Chat
+
+    return c.infer(TEXTS, split_text=False, skip_refine_text=True,
+                   params_infer_code=Chat.InferCodeParams(
+                       max_new_token=PIPE_STEPS, min_new_token=PIPE_STEPS,
+                       manual_seed=31, show_tqdm=False))
+
+
 SERVING_THREADS = 8     # streams, and as many blocking requests
 
 
@@ -3280,6 +3494,8 @@ def main():
     lap("multi-segment")
     phase_stream(chat, engine_chat, kernels, launches)
     lap("stream")
+    phase_pipelined(chat, engine_chat, kernels, launches)
+    lap("pipelined")
     phase_serving(engine_chat, kernels, launches)
     lap("serving")
     del engine_chat

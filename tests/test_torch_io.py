@@ -72,27 +72,39 @@ def test_writer_is_read_by_safetensors(tmp_path, rng):
 
 
 def test_bf16_raises_as_safetensors_numpy_does(tmp_path):
-    """A BF16 tensor raises a TypeError naming it, as ``safetensors.numpy``
-    does in a process where numpy has no bfloat16 (run here in a fresh
-    interpreter).  The JAX package's own process registers bfloat16 with
-    numpy (ml_dtypes, imported by JAX), so its loader reads the tensor as
-    bf16: a known difference (ROADMAP Queue 3)."""
+    """The port reads a BF16 tensor as the JAX loader does: a
+    ``torch.bfloat16`` leaf with the same bits, beside the other tensors of
+    the file.  (The name dates from when the port refused BF16; only the
+    bare-interpreter probe below still checks a raise.)
+
+    ``safetensors.numpy`` refuses a BF16 tensor with a TypeError in a
+    process where numpy has no bfloat16 (run here in a fresh interpreter),
+    but the JAX package's own process registers bfloat16 with numpy
+    (ml_dtypes, imported by JAX), so its loader reads the tensor as bf16.
+    The writer still takes no bfloat16."""
     import subprocess
     import sys
 
     from safetensors.torch import save_file as save_torch
 
     path = str(tmp_path / "bf16.safetensors")
-    save_torch({"w": torch.ones(3, dtype=torch.bfloat16),
-                "ok": torch.ones(2)}, path)
+    w = torch.tensor([1.0, -2.5, 3e-3, 1 + 2**-7, 65280.0, -0.0],
+                     dtype=torch.bfloat16)
+    save_torch({"w": w, "ok": torch.ones(2)}, path)
     probe = subprocess.run(
         [sys.executable, "-c", "import sys; from safetensors.numpy import "
          "load_file; load_file(sys.argv[1])", path],
         capture_output=True, text=True, timeout=120)
     assert probe.returncode != 0 and "TypeError" in probe.stderr
-    with pytest.raises(TypeError, match="BF16"):
-        tio.load_safetensors(path)
-    assert str(jio.load_safetensors(path)["w"].dtype) == "bfloat16"
+    got = tio.load_safetensors(path)
+    want = jio.load_safetensors(path)
+    assert str(want["w"].dtype) == "bfloat16"
+    assert got["w"].dtype == torch.bfloat16 and got["w"].shape == (6,)
+    np.testing.assert_array_equal(got["w"].view(torch.int16).numpy(),
+                                  want["w"].view(np.int16))
+    assert torch.equal(got["w"], w)
+    assert got["ok"].dtype == np.float32
+    np.testing.assert_array_equal(got["ok"], want["ok"])
     with pytest.raises(TypeError, match="(?i)bfloat16"):
         tio.save_safetensors(str(tmp_path / "x.safetensors"),
                              {"w": torch.ones(2, dtype=torch.bfloat16)})

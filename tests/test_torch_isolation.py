@@ -63,15 +63,22 @@ LOADER_PACKAGES = ("safetensors", "transformers", "tokenizers",
                    "huggingface_hub", "tqdm")
 
 
+# the modules that may import one of them, inside the call that needs it:
+# ``Chat.download_models(source="huggingface")``, and the progress bar,
+# which draws with tqdm where it is installed and nothing where not
+OPTIONAL_IMPORTS = {"huggingface_hub": "core.py", "tqdm": "progress.py"}
+
+
 def test_port_imports_no_loader_package():
     """Only ``Chat.download_models(source="huggingface")`` may import
-    ``huggingface_hub``, inside the call."""
+    ``huggingface_hub`` and only ``utils/progress.py`` ``tqdm``, each inside
+    the call."""
     bad = []
     for path in _port_files():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in LOADER_PACKAGES and not (
-                    top == "huggingface_hub" and path.name == "core.py"):
+            if top in LOADER_PACKAGES and OPTIONAL_IMPORTS.get(top) != \
+                    path.name:
                 bad.append(f"{path.relative_to(REPO)}: {mod}")
     assert not bad, bad
 

@@ -3,14 +3,18 @@
 Trees in the reference layout are built here at the tiny config (random
 state dicts in the torch formats, as ``test_weight_loading._synth_state``
 builds them, written with ``safetensors``; a tokenizer saved by
-``BertTokenizerFast``), once in float32 and once in float16.  A synthetic
+``BertTokenizerFast``), in float32, float16 and bfloat16.  A synthetic
 tree never passes the trusted checksum map, so the leaf comparisons call
 ``_load_assets`` directly, as the JAX package's tests do; the public path
 is driven with the map patched to the tree's own.
 
 * every leaf of the five trees equals the JAX loader's in value, dtype and
   shape (bf16 GPT matrices, float32 norms, the checkpoint's dtype
-  elsewhere, the Embed heads' weight norm folded in float64);
+  elsewhere, the Embed heads' weight norm folded in float64), bf16 leaves
+  bit for bit;
+* a float32 tree's mel decoder runs in both packages; a float16 or
+  bfloat16 one raises in both (float32 activations meet the file's
+  weights in the first convolution);
 * ``load()`` with no tree warns and draws random weights from ``seed``;
   with a tree the trusted map refuses it returns False and stays unloaded;
   ``coef=`` replaces the coefficients the reference replaces;
@@ -21,6 +25,7 @@ is driven with the map patched to the tree's own.
 import logging
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -36,8 +41,9 @@ TREES = ("gpt_params", "embed_params", "decoder_params", "vocos_params",
          "dvae_params")
 
 
-@pytest.fixture(scope="module", params=[np.float32, np.float16],
-                ids=["f32", "f16"])
+@pytest.fixture(scope="module",
+                params=[np.float32, np.float16, ml_dtypes.bfloat16],
+                ids=["f32", "f16", "bf16"])
 def tree(request, tiny_config, tmp_path_factory):
     base = tmp_path_factory.mktemp(f"tree_{np.dtype(request.param).name}")
     write_tiny_tree(str(base), tiny_config, request.param,
@@ -76,6 +82,10 @@ def _assert_same_tree(jtree, ttree, what):
         assert str(t.dtype).removeprefix("torch.") == str(j.dtype), (
             f"{what}/{k}: {t.dtype} vs {j.dtype}")
         assert tuple(t.shape) == tuple(j.shape), f"{what}/{k}"
+        if t.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy(),
+                np.asarray(j).view(np.int16), err_msg=f"{what}/{k}")
         np.testing.assert_array_equal(
             t.to(torch.float32).numpy()
             if t.dtype == torch.bfloat16 else t.numpy(),
@@ -105,6 +115,36 @@ def test_leaves_equal_the_jax_loader(tree, tiny_config):
     for attr in ("spk_emb_ids", "break_0_ids", "eos_token", "len"):
         assert getattr(tchat.tokenizer, attr) == getattr(jchat.tokenizer,
                                                          attr), attr
+
+
+def test_mel_decoder_runs_on_the_tree_in_both_or_neither(tree, tiny_config):
+    """The same outcome in both packages: a float16 or bfloat16 tree
+    raises in the first convolution, where float32 hiddens meet the file's
+    weights (ROADMAP "Known differences"); a float32 tree decodes (the
+    port's mels finite here; it infers on such a tree in
+    test_unload_then_reload_gives_a_fresh_chat)."""
+    from chattts_tpu.models import dvae as jdvae
+    from chattts_tpu_torch.models import dvae as tdvae
+
+    base, dtype = tree
+    tchat = TChat(config=port_config(tiny_config))
+    tchat._load_assets(base, device="cpu")
+    hid = np.random.default_rng(2).standard_normal(
+        (1, 8, tiny_config.gpt.hidden_size)).astype(np.float32)
+    if dtype == np.float32:
+        got = tdvae.decode_from_hidden(tchat.decoder_params,
+                                       torch.from_numpy(hid),
+                                       tchat.config.decoder)
+        assert got.shape[1] == 16 and torch.isfinite(got).all()
+        return
+    jchat = JChat(config=tiny_config)
+    jchat._load_assets(base)
+    with pytest.raises(TypeError, match="same dtypes"):
+        jdvae.decode_from_hidden(jchat.decoder_params, jnp.asarray(hid),
+                                 tiny_config.decoder)
+    with pytest.raises(RuntimeError, match="should be the same"):
+        tdvae.decode_from_hidden(tchat.decoder_params, torch.from_numpy(hid),
+                                 tchat.config.decoder)
 
 
 def test_coef_replaces_the_full_dvae_coef(tree, tiny_config):
