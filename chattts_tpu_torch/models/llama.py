@@ -105,14 +105,27 @@ class KVCache(NamedTuple):
         return KVCache(zeros(), zeros())
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands in their promoted dtype, as
+    ``jnp.einsum`` takes them (a bf16 activation times f32 weights is an
+    f32 product; equal dtypes pass unchanged)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    gu = torch.einsum("btd,dci->btci", x, p["wgu"])  # (B, T, 2, I)
-    return (F.silu(gu[:, :, 0]) * gu[:, :, 1]) @ p["down"]
+    gu = _einsum("btd,dci->btci", x, p["wgu"])  # (B, T, 2, I)
+    return _matmul(F.silu(gu[:, :, 0]) * gu[:, :, 1], p["down"])
 
 
 def _qkv(p: dict, x: torch.Tensor):
     """x (B, T, D) -> q, k, v each (B, T, H, Dh) via one fused matmul."""
-    qkv = torch.einsum("btd,dchk->btchk", x, p["wqkv"])
+    qkv = _einsum("btd,dchk->btchk", x, p["wqkv"])
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -130,12 +143,13 @@ def prefill_bias(attn_mask: torch.Tensor) -> torch.Tensor:
 
 def _attend(q, k, v, bias, head_dim: int, dtype):
     """q (B, Tq, H, Dh), k/v (B, Tk, H, Dh), bias (B, 1, Tq, Tk) ->
-    (B, Tq, H*Dh): f32 scores, softmax rounded to ``dtype`` before PV."""
+    (B, Tq, H*Dh): f32 scores, softmax rounded to ``dtype`` before PV (an
+    f32 v, from f32 weights, takes the product to f32)."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32))
     scores = scores / math.sqrt(head_dim) + bias
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+    o = _einsum("bhqk,bkhd->bqhd", probs, v)
     return o.reshape(o.shape[0], o.shape[1], -1)
 
 
@@ -148,7 +162,8 @@ def prefill_block(lp: dict, x: torch.Tensor, bias: torch.Tensor,
     q, k, v = _qkv(lp["attn"], h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    x = x + _attend(q, k, v, bias, cfg.head_dim, dtype) @ lp["attn"]["wo"]
+    x = x + _matmul(_attend(q, k, v, bias, cfg.head_dim, dtype),
+                    lp["attn"]["wo"])
     h = rms_norm(x, lp["ln2"], eps)
     return x + _mlp(lp["mlp"], h), k, v
 
@@ -201,8 +216,9 @@ def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur,
         k = apply_rope(k, cos, sin)
         cache.k[li][rows, cur] = k[:, 0].to(cache.k[li].dtype)
         cache.v[li][rows, cur] = v[:, 0].to(cache.v[li].dtype)
-        o = _attend(q, cache.k[li], cache.v[li], bias, cfg.head_dim, dtype)
-        x = x + o @ lp["attn"]["wo"]
+        o = _attend(q, cache.k[li].to(dtype), cache.v[li].to(dtype), bias,
+                    cfg.head_dim, dtype)
+        x = x + _matmul(o, lp["attn"]["wo"])
         h = rms_norm(x, lp["ln2"], eps)
         x = x + _mlp(lp["mlp"], h)
     hidden = rms_norm(x[:, 0], params["norm"], eps).to(torch.float32)

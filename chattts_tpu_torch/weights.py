@@ -37,13 +37,51 @@ def _leaf(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples."""
+def tree_items(tree, prefix: str = "") -> list:
+    """``(path, leaf)`` pairs of a tree of dicts, lists, tuples and
+    NamedTuples (a train state, a batch), in ``jax.tree.leaves`` order:
+    dict keys sorted, sequences and NamedTuple fields in order.  A path
+    joins the keys, indices and field names with '/', as the JAX
+    package's checkpoints do."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, v) for v in tree)
-    return fn(tree)
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix.rstrip("/"), tree)]
+    return [kv for k, v in items for kv in tree_items(v, f"{prefix}{k}/")]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in :func:`tree_items` order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def unflatten(template, leaves):
+    """The inverse of :func:`tree_leaves`: a tree of ``template``'s
+    structure holding ``leaves`` (an iterable, in that order)."""
+    return _fill(template, iter(leaves))
+
+
+def _fill(template, leaves):
+    # a plain recursion, not a closure: a closure over ``leaves`` would be
+    # a reference cycle, and an unfinished generator of leaves (holding
+    # every tensor it zips) would outlive the call until the cyclic GC ran
+    if isinstance(template, dict):
+        filled = {k: _fill(template[k], leaves) for k in sorted(template)}
+        return {k: filled[k] for k in template}
+    if isinstance(template, (list, tuple)):
+        out = [_fill(v, leaves) for v in template]
+        return type(template)(*out) if hasattr(template, "_fields") else \
+            type(template)(out)
+    return next(leaves)
+
+
+def map_tree(fn, tree):
+    """Apply ``fn`` to every leaf of a tree (see :func:`tree_items`)."""
+    return unflatten(tree, map(fn, tree_leaves(tree)))
 
 
 def from_numpy(tree) -> dict:

@@ -112,9 +112,27 @@
    call's hiddens with TF32 off and on.  Busy shares of profiled calls,
    and the walls of plain calls of both chunks and the one-shot path in
    turns.
+9. The training step (``phase_train``): ``train.make_train_step`` at the
+   default config (20 layers, D 768, 21178 text tokens, 4 x 626 codes),
+   bf16 ``gpt`` and f32 ``embed``, 10 steps on one random batch of 8 x
+   1024 (text 512 + code 512), lr 3e-3 after one warmup count.  Checked:
+   finite losses, step 1 (learning rate 0) moves no parameter, the last
+   loss below the first; printed: step ms (median of steps 3-10), tokens/s,
+   peak memory, the model-FLOPs share of the dense bf16 peak, the TF32
+   setting, and one profiled step split by kind.  Then the same config cut
+   to 2 layers at B 2, T 128, 3 steps on the card and on the CPU from one
+   state, held to each other (losses, leaf means, the share of elements
+   that went the other way); the check must reject three faults planted
+   in the card's run (half the batch, the moments not carried, the
+   gradient negated), and a bf16-score control is printed; a checkpoint
+   of the card's state
+   restored into a template from another seed, whose next step equals the
+   original's bit for bit.  The step launches none of the port's CUDA
+   kernels; the ``kernels`` line is the decode step's.
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
-``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``.
+``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``;
+``--train`` runs only ``phase_train`` (no build).
 
 TF32 is switched off for matmuls and cuDNN convolutions (the multi-segment
 phase turns cuDNN's back on for one encode, then restores it), so float32
@@ -125,6 +143,7 @@ JSON.
 
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3334,6 +3353,356 @@ def phase_engine_64(chat, kernels, launches):
         profile=True))
 
 
+# the training step (phase_train): the default config at B 8, T 1024, lr
+# 3e-3 after one warmup count, 10 steps on one fixed batch
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 1024, 10, 3e-3, 1
+# card against CPU: the full width cut to 2 layers, B 2, T 128, 3 steps
+# from the same state and batch.  Both run bf16 matmuls that sum in
+# another order (cuBLAS against the CPU's kernels), so a bf16 activation
+# may round one ulp (2^-8) the other way, and a gradient element near zero
+# may then take Adam's step (about lr whatever the gradient) the other
+# way.  So the check reads, and holds each to a limit set between the
+# sound run's reading and the planted faults' (PERF.md section 6): the
+# largest loss gap over steps relative to the CPU's loss, divided by the
+# steps taken; the largest mean gap over a leaf; the share of all
+# parameter elements whose gap exceeds the peak learning rate (an element
+# that went the other way).  The largest gap alone is about two opposite
+# Adam steps whatever the fault, so it is printed, not checked.
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_T, TRAIN_CPU_STEPS = 2, 2, 128, 3
+TRAIN_LOSS_RTOL, TRAIN_PARAM_MEAN, TRAIN_PARAM_SHARE = 5e-4, 5e-4, 1e-2
+# faults planted in the card's run, each of which the check must reject
+TRAIN_FAULTS = ("half the batch dropped", "moments not carried",
+                "gradient negated")
+# a precision control, printed: the f32 scores and softmax in bf16
+TRAIN_CONTROL = "scores and softmax in bf16"
+# one profiled step's device time by kind: the regions are make_train_step's
+# record_function labels; a backward kernel takes the region of the forward
+# op that made its autograd node (same sequence number)
+TRAIN_REGIONS = ("train.forward", "train.loss", "train.optimizer")
+TRAIN_SPLIT = ("bf16 matmuls", "f32 score einsums", "f32 heads",
+               "softmax and log-softmax", "optimizer", "everything else")
+
+
+def _train_flops(cfg, B, T):
+    """(matmul FLOPs, attention FLOPs) of one training step: 2 a multiply-
+    add, the backward twice the forward.  Projections see B*T tokens, the
+    heads B*(T-1); QK^T and PV are counted over the full T x T square (the
+    causal mask skips nothing here)."""
+    D, I, H, Dh, L = (cfg.hidden_size, cfg.intermediate_size,
+                      cfg.num_attention_heads, cfg.head_dim,
+                      cfg.num_hidden_layers)
+    layer = D * 3 * H * Dh + H * Dh * D + D * 2 * I + I * D
+    heads = D * cfg.num_text_tokens + cfg.num_vq * D * cfg.num_audio_tokens
+    matmul = 6 * (L * layer * B * T + heads * B * (T - 1))
+    attention = 3 * L * 2 * (2 * B * H * T * T * Dh)
+    return matmul, attention, L * layer + heads
+
+
+def _f32_gemm(name):
+    n = name.lower()
+    return "sgemm" in n or "f32f32_f32f32" in n
+
+
+def _gemm(name):
+    n = name.lower()
+    return any(s in n for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+
+
+def _train_split(prof):
+    """Device us of a profiled step by TRAIN_SPLIT kind, with each kind's
+    kernels ({kind: [us, {kernel: us}]}), and the last kind's us by region
+    and direction."""
+    events = prof.events()
+
+    def region_of(e):
+        while e is not None:
+            if e.name in TRAIN_REGIONS:
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    made_in = {}  # forward sequence number -> its region
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            r = region_of(e)
+            if r is not None:
+                made_in.setdefault(e.sequence_nr, r)
+    split = {k: [0.0, collections.Counter()] for k in TRAIN_SPLIT}
+    rest = collections.Counter()  # "everything else" by region
+    for e in events:
+        if not e.kernels:
+            continue
+        r, where = region_of(e), "forward"
+        p = e
+        while r is None and p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function"):
+                r, where = made_in.get(p.sequence_nr), "backward"
+                break
+            p = p.cpu_parent
+        for k in e.kernels:
+            name = k.name.replace("(anonymous namespace)::", "").removeprefix(
+                "void ").split("(")[0].strip()[:70]
+            if r == "train.optimizer":
+                kind = "optimizer"
+            elif "softmax" in name.lower():
+                kind = "softmax and log-softmax"
+            elif _gemm(name) and _f32_gemm(name):
+                kind = ("f32 heads" if r == "train.loss" else
+                        "f32 score einsums" if r == "train.forward" else
+                        "everything else")
+            elif _gemm(name):
+                kind = "bf16 matmuls"
+            else:
+                kind = "everything else"
+            split[kind][0] += k.duration
+            split[kind][1][name] += k.duration
+            if kind == "everything else":
+                rest[f"{where} of {r}"] += k.duration
+    return split, rest
+
+
+def _train_steps(state, batch, step, n, reset_moments=False):
+    """n steps; ``reset_moments`` zeroes both moment trees before each
+    (a planted fault: the moments not carried between steps)."""
+    import torch
+    from chattts_tpu_torch.weights import map_tree
+
+    losses = []
+    for _ in range(n):
+        if reset_moments:
+            o = state.opt_state
+            state = state._replace(opt_state=o._replace(
+                mu=map_tree(torch.zeros_like, o.mu),
+                nu=map_tree(torch.zeros_like, o.nu)))
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    return state, [float(x) for x in losses]
+
+
+def _attend_bf16(q, k, v, bias, head_dim, dtype):
+    """``models/llama.py``'s ``_attend`` with the scores, the bias and the
+    softmax in bf16 (the precision control of the card-against-CPU
+    check)."""
+    import torch
+    from chattts_tpu_torch.models import llama
+
+    bf = torch.bfloat16
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(bf), k.to(bf))
+    scores = scores / math.sqrt(head_dim) + bias.to(bf)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    o = llama._einsum("bhqk,bkhd->bqhd", probs, v)
+    return o.reshape(o.shape[0], o.shape[1], -1)
+
+
+def _train_planted(state, batch, cfg, opt, run):
+    """TRAIN_CPU_STEPS steps of ``make_train_step`` on the card as
+    ``run`` says: "sound", one of TRAIN_FAULTS, or TRAIN_CONTROL."""
+    from unittest import mock
+
+    import torch
+    from chattts_tpu_torch import train
+    from chattts_tpu_torch.models import llama
+    from chattts_tpu_torch.weights import map_tree
+
+    if run == "gradient negated":
+        base = opt
+        opt = base._replace(update=lambda g, s, p: base.update(
+            map_tree(torch.neg, g), s, p))
+    if run == "half the batch dropped":
+        batch = train.TrainBatch(*(x[:x.shape[0] // 2] for x in batch))
+    step = train.make_train_step(cfg, opt)
+    with mock.patch.object(llama, "_attend", _attend_bf16 if run ==
+                           TRAIN_CONTROL else llama._attend):
+        return _train_steps(state, batch, step, TRAIN_CPU_STEPS,
+                            reset_moments=run == "moments not carried")
+
+
+def _train_gaps(l_dev, l_cpu, s_dev, s_cpu, lr):
+    """(loss, leaf mean, share, max-abs) readings of the card's run against
+    the CPU's (TRAIN_LOSS_RTOL etc.)."""
+    from chattts_tpu_torch.weights import tree_leaves
+
+    loss = max(abs(a - b) / ((1 + i) * abs(b))
+               for i, (a, b) in enumerate(zip(l_dev, l_cpu)))
+    mean = worst = over = n = 0
+    for a, b in zip(tree_leaves((s_dev.gpt, s_dev.embed)),
+                    tree_leaves((s_cpu.gpt, s_cpu.embed))):
+        d = (a.float() - b.to(a.device).float()).abs()
+        mean, worst = max(mean, float(d.mean())), max(worst, float(d.max()))
+        over, n = over + int((d > lr).sum()), n + d.numel()
+    return loss, mean, over / n, worst
+
+
+def _train_card_against_cpu(dev, cfg, opt):
+    """TRAIN_CPU_STEPS steps at TRAIN_CPU_LAYERS layers from one state and
+    batch on the card and on the CPU, held to each other; the same steps
+    on the card with each of TRAIN_FAULTS planted, each of which the check
+    must reject, and with TRAIN_CONTROL.  Then the card's state saved,
+    restored into a template drawn from another seed, and one more step
+    from both, which must be equal bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from chattts_tpu_torch import train
+    from chattts_tpu_torch.utils import checkpoint
+    from chattts_tpu_torch.weights import to_device
+
+    cfg = dataclasses.replace(cfg, num_hidden_layers=TRAIN_CPU_LAYERS)
+    step = train.make_train_step(cfg, opt)
+    cpu = torch.device("cpu")
+    s_cpu = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=cpu)
+    b_cpu = train.random_batch(torch.Generator().manual_seed(1), cfg,
+                               TRAIN_CPU_B, TRAIN_CPU_T, device=cpu)
+    s0, b_dev = to_device(s_cpu, dev), to_device(b_cpu, dev)
+    t0 = time.perf_counter()
+    s_cpu, l_cpu = _train_steps(s_cpu, b_cpu, step, TRAIN_CPU_STEPS)
+    t_cpu = time.perf_counter() - t0
+    lr = max(float(opt.schedule(torch.tensor(i, dtype=torch.int32)))
+             for i in range(TRAIN_CPU_STEPS))
+    limits = (TRAIN_LOSS_RTOL, TRAIN_PARAM_MEAN, TRAIN_PARAM_SHARE)
+    print(f"train: card against CPU at {TRAIN_CPU_LAYERS} layers, B "
+          f"{TRAIN_CPU_B}, T {TRAIN_CPU_T}, {TRAIN_CPU_STEPS} steps (CPU "
+          f"{t_cpu:.1f} s), CPU losses {l_cpu}; readings against limits "
+          f"{limits}: loss gap / CPU loss / steps, largest leaf mean gap, "
+          f"share of elements more than the peak lr {lr} apart (max-abs "
+          "gap printed, not checked)")
+    for run in ("sound",) + TRAIN_FAULTS + (TRAIN_CONTROL,):
+        s_dev, l_dev = _train_planted(s0, b_dev, cfg, opt, run)
+        *got, worst = _train_gaps(l_dev, l_cpu, s_dev, s_cpu, lr)
+        passed = all(x <= lim for x, lim in zip(got, limits))
+        print(f"  {run:28s} losses {[round(x, 5) for x in l_dev]}, "
+              f"readings {', '.join(f'{x:.3e}' for x in got)}, max-abs "
+              f"{worst:.3e}: {'passes' if passed else 'rejected'}")
+        if run == "sound":
+            check(passed, "train: the card's steps left the CPU's")
+            s_sound = s_dev
+        elif run in TRAIN_FAULTS:
+            check(not passed, f"train: the check passed the fault '{run}'")
+    s_dev = s_sound
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_train_state(tmp, s_dev)
+        template = train.init_train_state(torch.Generator().manual_seed(7),
+                                          cfg, opt, device=dev)
+        restored = checkpoint.restore_train_state(path, template)
+    a, m_a = step(s_dev, b_dev)
+    b, m_b = step(restored, b_dev)
+    same = torch.equal(m_a["loss"], m_b["loss"]) and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(train.tree_leaves(a), train.tree_leaves(b)))
+    print(f"train: checkpoint after step {int(s_dev.step)} restored into a "
+          f"seed-7 template; step {int(a.step)} from both: loss "
+          f"{float(m_a['loss'])} and {float(m_b['loss'])}, every leaf "
+          f"{'equal bit for bit' if same else 'NOT equal'}")
+    check(same, "train: the restored state's step differs from the "
+                "original's")
+
+
+def phase_train(dev):
+    """The training step at the default config on the card: TRAIN_STEPS
+    steps of make_train_step on one random batch of TRAIN_B x TRAIN_T
+    (text 512 + code 512).  Checked: every loss finite, step 1 (learning
+    rate 0 at count 0) leaves every parameter as it was, the last loss
+    below the first.  Printed: the median step ms over steps 3-10 (CUDA
+    events, synchronized around each step), tokens/s, the peak memory
+    allocated over steps 2-10, the model-FLOPs share of the dense bf16
+    peak, and one more step under torch.profiler split by kind.  Then the
+    card against the CPU at 2 layers, and a checkpoint restored on the
+    card (_train_card_against_cpu)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chattts_tpu_torch import train
+    from chattts_tpu_torch.config import GPTConfig
+
+    cfg = GPTConfig()
+    opt = train.make_optimizer(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    print(f"train: TF32 for matmuls "
+          f"{torch.backends.cuda.matmul.allow_tf32} (float32 matmul "
+          f"precision '{torch.get_float32_matmul_precision()}'), cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    state = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=dev)
+    batch = train.random_batch(torch.Generator().manual_seed(1), cfg,
+                               TRAIN_B, TRAIN_T, device=dev)
+    step = train.make_train_step(cfg, opt)
+    n_params = sum(t.numel() for t in train.tree_leaves((state.gpt,
+                                                         state.embed)))
+    before = [t.clone() for t in train.tree_leaves((state.gpt,
+                                                     state.embed))]
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        if i == 0:
+            moved = [j for j, (a, b) in enumerate(zip(before, train.tree_leaves(
+                (state.gpt, state.embed)))) if not torch.equal(a, b)]
+            del before
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"train: {TRAIN_STEPS} steps at the default config ({n_params} "
+          f"parameters), B {TRAIN_B}, T {TRAIN_T}: losses {losses}")
+    check(all(math.isfinite(x) for x in losses), "train: a loss is not finite")
+    check(not moved, f"train: step 1 moved leaves {moved[:8]} at learning "
+                     "rate 0")
+    check(losses[-1] < losses[0], "train: the last loss is not below the "
+                                  "first")
+    med = statistics.median(ms[2:])
+    mm, attn, weights = _train_flops(cfg, TRAIN_B, TRAIN_T)
+    tokens = TRAIN_B * TRAIN_T
+    print(f"train: step ms {[round(x, 3) for x in ms]}; median over steps "
+          f"3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s; "
+          f"peak allocated over steps 2-{TRAIN_STEPS} {peak / 2**30:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB held before")
+    print(f"train: model FLOPs a step {mm:.4e} (6 x {weights} matmul weights "
+          f"x tokens) + {attn:.4e} (QK^T and PV, fwd + bwd) = "
+          f"{mm + attn:.4e}; {(mm + attn) / (med / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{(mm + attn) / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the dense "
+          f"bf16 peak ({BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split, rest = _train_split(prof)
+    total = sum(v[0] for v in split.values())
+    print(f"train profile: one step, device {total / 1e3:.3f} ms in a "
+          f"profiled wall of {wall * 1e3:.3f} ms ({total / 1e4 / wall:.1f}% "
+          f"busy); by kind: device ms, share")
+    for kind in TRAIN_SPLIT:
+        us, kernels = split[kind]
+        top = ", ".join(f"{k} {v / 1e3:.2f}" for k, v in
+                        kernels.most_common(3))
+        print(f"  {kind:24s} {us / 1e3:9.3f} {us / max(total, 1e-9):7.1%}"
+              f"   {top}")
+    print("train split " + json.dumps({k: round(split[k][0] / 1e3, 4)
+                                      for k in TRAIN_SPLIT}))
+    print("train: everything else by region, device ms: " + ", ".join(
+        f"{k} {v / 1e3:.2f}" for k, v in rest.most_common()))
+    print("train: everything else, largest kernels, device ms: " + "; ".join(
+        f"{k} {v / 1e3:.2f}" for k, v in
+        split["everything else"][1].most_common(8)))
+    del state, batch
+    torch.cuda.empty_cache()
+    _train_card_against_cpu(dev, cfg, opt)
+
+
 def sweep_chunk(dev, chunks=(32, 64, 128), blocks=(1024, 2112, 4096)):
     """``python3 chip_smoke.py --sweep-chunk``: the attention chunk C at 32,
     64 and 128 keys, each with the grid aimed at ``blocks`` blocks
@@ -3437,6 +3806,11 @@ def main():
         sweep_chunk(dev)
         print(card)
         return 0
+    if sys.argv[1:] == ["--train"]:
+        phase_train(dev)
+        print(f"chip_smoke --train: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     if sys.argv[1:] == ["--gemv"]:
         phase_build()
         phase_gemv(dev)
@@ -3505,6 +3879,10 @@ def main():
     torch.cuda.empty_cache()
     phase_engine_64(chat, kernels, launches)
     lap("engines")
+    del chat
+    torch.cuda.empty_cache()
+    phase_train(dev)
+    lap("train")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -20,6 +20,7 @@ from safetensors.numpy import load_file, save_file
 from chattts_tpu.utils import io as jio
 from chattts_tpu_torch.utils import checkpoint as tck
 from chattts_tpu_torch.utils import io as tio
+from chattts_tpu_torch.weights import tree_leaves
 
 
 def _arrays(rng):
@@ -253,7 +254,7 @@ def test_checkpoint_round_trip(tmp_path, rng):
     template = _tree(np.random.default_rng(99))
     got = tck.load_params(path, template)
     assert got is template
-    for a, b in zip(tck._flatten(got).values(), tck._flatten(src).values()):
+    for a, b in zip(tree_leaves(got), tree_leaves(src)):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
@@ -274,5 +275,5 @@ def test_checkpoint_files_cross_with_jax(tmp_path, rng):
     jax_file = str(tmp_path / "jax.safetensors")
     jck.save_params(jax_file, jgot)
     tgot = tck.load_params(jax_file, _tree(np.random.default_rng(7)))
-    for a, b in zip(tck._flatten(tgot).values(), tck._flatten(src).values()):
+    for a, b in zip(tree_leaves(tgot), tree_leaves(src)):
         assert a.dtype == b.dtype and torch.equal(a, b)
