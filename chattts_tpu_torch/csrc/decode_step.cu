@@ -115,6 +115,14 @@
 // Launch overhead and the gemv's prologue dominate the step; a CUDA graph
 // and a prologue built once a gemv are later work.
 //
+// Tensor parallelism needs an all_reduce after wo and after down in every
+// layer, which a step that loops over the layers on the device has no room
+// for.  A tp rank therefore launches the same kernels one by one from the
+// host (ops/decode_step.py, DecodeStep.tp): the one-gemv entry on its
+// slabs (qkv N 3 HD/tp, wo K HD/tp, gate/up N 2 I/tp, down K I/tp) and
+// decode_step_attend, one layer's launch_attend on its H/tp heads; the
+// partial sums cross ranks between launches.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libdecode_step.so decode_step.cu
 // Bound to Python with ctypes (chattts_tpu_torch/ops/decode_step.py).
@@ -1230,6 +1238,45 @@ int decode_step_kv4_append(const void* qkv, const void* cosb,
       static_cast<int8_t*>(vc), static_cast<const int*>(cur),
       static_cast<const int*>(lo), B, T, H, Dh,
       static_cast<cudaStream_t>(stream));
+}
+
+// One layer's attention on its own, as the step runs it (the kv4 append
+// first on the int4 cache, then the scores and values passes): a tensor-
+// parallel rank launches it between its qkv and wo gemvs on its own heads.
+// qkv (B, 3 HD) f32 from the qkv gemv, cos/sin (B, Dh) f32; the layer's
+// caches kc/vc (B, T, W) of the tier kv_bits (0 bf16, 8 int8, 4 int4), row
+// cur[b] of row b appended; cur and lo (B,) int32; the attention scratch
+// and tickets as decode_step_launch takes them; o (B, HD) f32 out.  H and
+// Dh are the rank's: a quantized row's scale lanes are its H heads'.
+// Returns the first CUDA error (0 on success).
+int decode_step_attend(const void* qkv, const void* cosb, const void* sinb,
+                       void* kc, void* vc, const void* cur, const void* lo,
+                       void* scores, void* cmax, void* part, void* tickets,
+                       void* o, int B, int T, int H, int Dh, int kv_bits,
+                       float scale, void* stream) {
+  if (B < 1 || B > kMaxB || H < 1 || Dh % 16 || Dh > kMaxDh || T < 1 ||
+      (kv_bits && 2 * H > kKvPad) ||
+      (kv_bits != KV_BF16 && kv_bits != KV_INT8 && kv_bits != KV_INT4) ||
+      (kv_bits == KV_INT4 && ((H * Dh) % 256 || H % 2 || Dh % 64)))
+    return (int)cudaErrorInvalidValue;
+  StepArgs a{};
+  a.qkv = static_cast<float*>(const_cast<void*>(qkv));
+  a.o = static_cast<float*>(o);
+  a.cosb = static_cast<const float*>(cosb);
+  a.sinb = static_cast<const float*>(sinb);
+  a.cur = static_cast<const int*>(cur);
+  a.lo = static_cast<const int*>(lo);
+  a.scores = static_cast<float*>(scores);
+  a.cmax = static_cast<float*>(cmax);
+  a.part = static_cast<float*>(part);
+  a.tickets = static_cast<unsigned int*>(tickets);
+  a.B = B, a.H = H, a.Dh = Dh, a.T = T, a.kv_bits = kv_bits, a.scale = scale;
+  a.st = static_cast<cudaStream_t>(stream);
+  char* kl = static_cast<char*>(kc);
+  char* vl = static_cast<char*>(vc);
+  if (kv_bits == KV_INT8) return (int)launch_attend<KV_INT8>(a, kl, vl);
+  if (kv_bits == KV_INT4) return (int)launch_attend<KV_INT4>(a, kl, vl);
+  return (int)launch_attend<KV_BF16>(a, kl, vl);
 }
 
 // Keys of a row's window one attention block owns, as built.

@@ -36,7 +36,34 @@ What differs from the JAX package, and why:
 * The XLA compile-population helpers (traced-index gathers, power-of-two
   padding, wave-size buckets, ahead-of-time compilation) have no
   counterpart: plain indexing.  ``warmup()`` builds the kernel and runs one
-  request per prompt bucket.  Mesh sharding is not ported.
+  request per prompt bucket.
+
+Sharded over a mesh (``Engine(..., mesh=parallel.mesh.make_mesh(dp, tp))``,
+the JAX engine's ``mesh=``), every rank runs this same scheduler on the
+same requests (SPMD), so admission, preemption and harvest decide alike
+everywhere; the host RNG of unseeded requests is drawn for every request
+of a wave on every rank, in one order.  Slots split over ``dp`` in
+contiguous blocks: a rank prefills and steps only its own ``S / dp``, and
+its device state holds only those.  A chunk's packed transfer (the 7 x S
+status block and every slot's ids) is one all_reduce over dp of each
+rank's zero-padded block, so every rank reads every slot's status; at
+harvest the finished slots' hiddens are gathered the same way from their
+owners.  A slot's noise depends on its request's seed, attempt, depth and
+codebook only, so where a slot lives changes no draw; but a rank's
+products (the prefill, the heads) run at its own batch's shape, and a
+library product may sum a row in an order its shape picks, so a dp
+engine's hiddens agree with the unsharded one's to rounding, not bit for
+bit (one rank of dp=1 is the unsharded engine exactly).  Under
+``tp`` a rank holds its heads' caches and its slabs of the decoder
+(``shard_params``, ``ops.decode_step.shard_packed``); the prefill and each
+step (``ops.decode_step.decode_step_tp``: the step's gemvs and a layer's
+attention as separate launches) sum the partials of ``wo`` and ``down``
+over tp.  The embedding heads stay whole on every rank (the JAX specs
+shard their vocab columns), so every tp rank samples the same token from
+the same logits.  Under tp > 1 only bf16 weights and the bf16 or kv8
+cache shard: ``shard_packed`` slices bf16 slabs only (an int8 scale group
+spans D rows of the contraction, which wo's HD/tp does not hold), and kv4
+rows need HD % 256 == 0 a rank; sp stays 1.
 """
 
 from __future__ import annotations
@@ -56,6 +83,7 @@ from ..models import llama
 from ..ops import decode_step as step_mod
 from ..ops import sampling, threefry
 from ..ops.kv_quant import kv_quantizer, row_width
+from ..parallel import mesh as mesh_mod
 from .generate import REP_WINDOW, GenerationOutputs
 
 # steps whose sampling noise is drawn in one go (bounds its memory: a block
@@ -226,18 +254,19 @@ def outputs_to_generation(outs: List[EngineOutput]) -> GenerationOutputs:
 
 class SlotState:
     """Device-side engine state, one entry per slot along the first axis;
-    every tensor is updated in place."""
+    every tensor is updated in place.  ``slots`` (default all) is a dp
+    rank's share and ``heads`` (default the config's) a tp rank's."""
 
     def __init__(self, cfg: GPTConfig, ecfg: EngineConfig, kv_bits: int,
-                 device):
-        S, Tc = ecfg.max_num_seqs, ecfg.cache_len
+                 device, slots: Optional[int] = None, heads=None):
+        S, Tc = slots or ecfg.max_num_seqs, ecfg.cache_len
         D, L = cfg.hidden_size, cfg.num_hidden_layers
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=device)
 
         # flat stacked caches, the decode kernel's layout
-        cshape = (L, S, Tc, row_width(kv_bits, cfg))
+        cshape = (L, S, Tc, row_width(kv_bits, heads or cfg))
         cdtype = torch.int8 if kv_bits else torch.bfloat16
         self.kc = full(cshape, 0, cdtype)
         self.vc = full(cshape, 0, cdtype)
@@ -267,32 +296,81 @@ class SlotState:
         #                                            a live slot
 
 
+def _state_specs(cfg: GPTConfig, ecfg: EngineConfig) -> dict:
+    """Placements of the :class:`SlotState` tensors on a (dp, sp, tp)
+    mesh: slots over dp, the caches' heads over tp (a bf16 row is the heads'
+    features in order; a kv8 rank's row is the same format over its own
+    heads, so its shape is that of a shard but its scale lanes are made
+    locally), everything else per slot.  The engine allocates each rank's
+    shard directly."""
+    P = mesh_mod.spec
+    slot, cache = P("dp"), P(None, "dp", None, "tp")
+    return {"kc": cache, "vc": cache, "ids": P("dp", None, None),
+            "lo": slot, "hidden": P("dp", None), "cur": slot,
+            "pos_next": slot, "step_in": slot, "active": slot,
+            "finish": slot, "end_idx": slot, "hiddens": P("dp", None, None),
+            "temperature": P("dp", None), "top_p": slot, "top_k": slot,
+            "rep_penalty": slot, "min_new": slot, "max_new": slot,
+            "eos": slot, "seq_off": slot, "rng": P("dp", None), "ran": P()}
+
+
 class Engine:
     """FCFS continuous-batching engine over the slot state."""
 
     def __init__(self, cfg: GPTConfig, ecfg: EngineConfig, gpt_params: dict,
                  embed_params: dict, spk_emb_ids: int = 0, seed: int = 0,
-                 packed: Optional[dict] = None, kv_bits: int = 8):
+                 packed: Optional[dict] = None, kv_bits: int = 8,
+                 mesh: Optional[mesh_mod.Mesh] = None):
         """``packed``: the decode kernel's weight layout, shared with other
         engines and the Generator of the same weights (one copy).
         ``kv_bits``: 8 (int8 cache, the default), 4 (int4 cache, up to 64
-        slots) or 0 (bf16 cache)."""
-        self._quantize = kv_quantizer(kv_bits, cfg)
-        if ecfg.max_num_seqs > fused_slot_limit(kv_bits):
+        slots) or 0 (bf16 cache).  ``mesh``: a (dp, sp, tp) mesh of which
+        this process is a rank (see the module's docstring); the weights
+        given are the full ones, every rank the same.  ``max_num_seqs``
+        must divide by dp and the slot limit holds for a rank's share."""
+        dp, tp = 1, 1
+        if mesh is not None:
+            if mesh.coords is None:
+                raise ValueError("this process is not a rank of the mesh")
+            if mesh.shape["sp"] != 1:
+                raise ValueError("a serving mesh keeps sp=1")
+            dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+            if ecfg.max_num_seqs % dp:
+                raise ValueError("max_num_seqs must divide dp size")
+        self.mesh = mesh
+        self._heads = step_mod.local_heads(cfg, tp)
+        if tp > 1 and kv_bits == 4:
+            raise ValueError("the kv4 cache does not shard over tp: its rows "
+                             "need heads * head_dim % 256 == 0 on a rank")
+        self._quantize = kv_quantizer(kv_bits, self._heads)
+        S_loc = ecfg.max_num_seqs // dp
+        if S_loc > fused_slot_limit(kv_bits):
             raise ValueError(
-                f"{ecfg.max_num_seqs} slots exceed the decode step's "
+                f"{S_loc} slots (a rank's) exceed the decode step's "
                 f"{fused_slot_limit(kv_bits)} rows at kv_bits={kv_bits}")
         ecfg.buckets  # validates the prompt buckets
         self.cfg = cfg
         self.ecfg = ecfg
         self.kv_bits = kv_bits
-        self.gpt_params = gpt_params
         self.embed_params = embed_params
         self.spk_emb_ids = spk_emb_ids
         self.device = gpt_params["norm"].device
-        self.packed = (packed if packed is not None
-                       else step_mod.pack_weights(gpt_params, cfg))
-        self.state = SlotState(cfg, ecfg, kv_bits, self.device)
+        if packed is None:
+            packed = step_mod.pack_weights(gpt_params, cfg)
+        self._reduce = None  # the prefill's and the step's sum over tp
+        if tp > 1:
+            rank = mesh.coords["tp"]
+            packed = step_mod.shard_packed(packed, cfg, tp, rank)
+            gpt_params = mesh_mod.shard_params(
+                gpt_params, mesh_mod.gpt_param_specs(cfg), mesh)
+            self._reduce = lambda t: mesh.all_reduce(t, "tp")
+        self.gpt_params = gpt_params
+        self.packed = packed
+        # global slots [base, base + S_loc) are this rank's
+        self._base = mesh.coords["dp"] * S_loc if mesh is not None else 0
+        self._slots_local = S_loc
+        self.state = SlotState(cfg, ecfg, kv_bits, self.device, S_loc,
+                               self._heads)
         self.waiting: collections.deque[EngineRequest] = collections.deque()
         self.slots: List[Optional[EngineRequest]] = [None] * ecfg.max_num_seqs
         self._slot_chunks = [0] * ecfg.max_num_seqs
@@ -309,7 +387,7 @@ class Engine:
         self._lat_queue: collections.deque = collections.deque(maxlen=512)
         self._lat_first: collections.deque = collections.deque(maxlen=512)
         self._last_log = time.monotonic()
-        S, nvq = ecfg.max_num_seqs, cfg.num_vq
+        S, nvq = S_loc, cfg.num_vq
         dev = self.device
         self._rows = torch.arange(S, device=dev)
         self._win = torch.arange(REP_WINDOW, device=dev)[None, :]
@@ -339,7 +417,7 @@ class Engine:
             for s, r in enumerate(self.slots):
                 if r is not None and r.request_id == request_id:
                     self.slots[s] = None
-                    self.state.active[s] = False
+                    self._deactivate([s])
                     req = r
                     break
         if req is not None and req.on_tokens is not None:
@@ -435,7 +513,8 @@ class Engine:
             # None when the in-flight chunk already covers every slot's end
             self._spec = self._dispatch_chunk(long_chunk, inflight=pending[2])
         self._ingest(*pending)  # the one host read of the chunk
-        self.stats["steps"] += int(self._status[_RAN, 0])
+        # a rank's live steps are a prefix of the chunk: the longest counts
+        self.stats["steps"] += int(self._status[_RAN].max())
         return self._harvest()
 
     # -- the decode chunk ------------------------------------------------
@@ -451,7 +530,6 @@ class Engine:
         rounds are elementwise), which keeps its few hundred small launches
         out of every step."""
         st, nvq = self.state, self.cfg.num_vq
-        S = self.ecfg.max_num_seqs
         gstep = st.seq_off + st.step_in
         depth = (gstep[None, :] + torch.arange(
             n, device=self.device)[:, None]).reshape(-1)          # (n*S,)
@@ -469,7 +547,7 @@ class Engine:
         ``noise``) -> embed -> decode kernel.  Device ops only; only live
         slots change state."""
         st, cfg, ecfg = self.state, self.cfg, self.ecfg
-        S, nvq = ecfg.max_num_seqs, cfg.num_vq
+        S, nvq = self._slots_local, cfg.num_vq
         Tp, Tc = ecfg.max_prompt_len, ecfg.cache_len
         ep = self.embed_params
         live = st.active & ~st.finish
@@ -543,8 +621,13 @@ class Engine:
 
         emb = (embed_mod.embed_text_step(ep, token[:, 0])
                if ecfg.infer_text else embed_mod.embed_code_step(ep, token))
-        x_out = step_mod.decode_step(self.packed, emb, st.kc, st.vc, cur,
-                                     st.lo, st.pos_next, cfg)
+        if self._reduce is None:
+            x_out = step_mod.decode_step(self.packed, emb, st.kc, st.vc, cur,
+                                         st.lo, st.pos_next, cfg)
+        else:
+            x_out = step_mod.decode_step_tp(
+                self.packed, emb, st.kc, st.vc, cur, st.lo, st.pos_next, cfg,
+                self._heads, self._reduce)
         hidden = llama.rms_norm(x_out, self.gpt_params["norm"],
                                 cfg.rms_norm_eps)
         st.hidden = torch.where(live[:, None], hidden, st.hidden)
@@ -583,7 +666,7 @@ class Engine:
                 noise = self._noise_block(min(NOISE_BLOCK, n_steps - i))
             self._decode_step(noise[i % NOISE_BLOCK])
         self.stats["steps_launched"] += n_steps
-        S = ecfg.max_num_seqs
+        S = self._slots_local
         status = torch.stack([
             st.finish.long(), st.active.long(), st.end_idx, st.step_in,
             st.max_new, st.seq_off, st.ran.expand(S)])
@@ -591,7 +674,14 @@ class Engine:
             n_steps, device=self.device)[None, :]).clamp(0, ecfg.cache_len - 1)
         ids_new = st.ids.gather(
             1, gather_pos[:, :, None].expand(S, n_steps, self.cfg.num_vq))
+        if self.mesh is not None:
+            # every slot's status and ids: this rank's block in its columns
+            # of a zero block, summed over dp below (exact)
+            status = self._all_slots(status, 1)
+            ids_new = self._all_slots(ids_new, 0)
         flat = torch.cat([status.reshape(-1), ids_new.reshape(-1)])
+        if self.mesh is not None:
+            self.mesh.all_reduce(flat, "dp")
         event = None
         if flat.is_cuda:
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -603,6 +693,47 @@ class Engine:
             if r is not None:
                 self._slot_chunks[s] += 1
         return flat, event, n_steps
+
+    def _all_slots(self, local: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's per-slot block (its slots along ``dim``) in its place
+        of a zero block over every slot."""
+        shape = list(local.shape)
+        shape[dim] = self.ecfg.max_num_seqs
+        out = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        out.narrow(dim, self._base, self._slots_local).copy_(local)
+        return out
+
+    def _local(self, slots: List[int]) -> List[tuple]:
+        """(position in ``slots``, local row) of the global slots this rank
+        owns."""
+        base, n = self._base, self._slots_local
+        return [(i, s - base) for i, s in enumerate(slots)
+                if base <= s < base + n]
+
+    def _deactivate(self, slots: List[int]) -> None:
+        rows = [r for _, r in self._local(slots)]
+        if rows:
+            self.state.active[torch.as_tensor(rows, device=self.device)] = \
+                False
+
+    def _slot_hiddens(self, slots: List[int],
+                      rows: Optional[int] = None) -> torch.Tensor:
+        """A copy of the first ``rows`` (default all) hidden rows of each of
+        the global ``slots``, (len(slots), rows, D), on every rank: gathered
+        from their owners by an all_reduce over dp of zero-padded parts."""
+        st = self.state
+        if self.mesh is None:
+            idx = torch.as_tensor(slots, device=self.device)
+            return st.hiddens[idx] if rows is None else st.hiddens[idx, :rows]
+        rows = st.hiddens.shape[1] if rows is None else rows
+        out = torch.zeros((len(slots), rows, st.hiddens.shape[2]),
+                          dtype=st.hiddens.dtype, device=self.device)
+        mine = self._local(slots)
+        if mine:
+            at = torch.as_tensor([i for i, _ in mine], device=self.device)
+            loc = torch.as_tensor([r for _, r in mine], device=self.device)
+            out[at] = st.hiddens[loc, :rows]
+        return self.mesh.all_reduce(out, "dp")
 
     def _ingest(self, flat: torch.Tensor, event, n_steps: int) -> None:
         """Read a chunk's packed transfer: scheduling scalars and the ids
@@ -675,7 +806,9 @@ class Engine:
     def _prefill_wave(self, Tpb: int, group: List) -> None:
         """Prefill the prompts of ``group`` [(slot, request)], all of bucket
         ``Tpb``, in one batch, into cache rows [Tp - Tpb, Tp) of their
-        slots, and set the slots' state."""
+        slots, and set the slots' state.  Every rank reads every request
+        of the wave (the host RNG of unseeded requests advances alike); a
+        dp rank prefills only its own slots' rows."""
         cfg, ecfg, st, dev = self.cfg, self.ecfg, self.state, self.device
         nvq, D = cfg.num_vq, cfg.hidden_size
         Tp = ecfg.max_prompt_len
@@ -714,10 +847,16 @@ class Engine:
                        min(req.max_new, ecfg.max_new_tokens), eos,
                        req.resume_len, int(key[0]), int(key[1]))
 
-        def up(a):
-            return torch.from_numpy(a).to(dev)
+        mine = self._local([s for s, _ in group])
+        if not mine:
+            return  # another dp rank's slots
+        pick = [i for i, _ in mine]
+        W = len(mine)
 
-        slots = torch.as_tensor([s for s, _ in group], device=dev)
+        def up(a):
+            return torch.from_numpy(a[pick]).to(dev)
+
+        slots = torch.as_tensor([r for _, r in mine], device=dev)
         ids, attn, tmask = up(ids_h), up(attn_h), up(tmask_h)
         spk, has_spk, temp = up(spk_h), up(has_spk_h), up(temp_h)
         fl, ints = up(fl_h), up(in_h)
@@ -731,16 +870,18 @@ class Engine:
         emb = torch.where(cond, nvec[:, None, :].to(emb.dtype), emb)
         attn_i = attn.long()
         positions = (torch.cumsum(attn_i, dim=1) - 1).clamp(min=0)
-        mini = llama.KVCache.create(cfg, W, Tpb, device=dev)
+        heads = self._heads
+        mini = llama.KVCache.create(heads, W, Tpb, device=dev)
         hidden_all, mini = llama.prefill(self.gpt_params, emb, attn,
-                                         positions, mini, cfg)
-        HD = cfg.num_attention_heads * cfg.head_dim
+                                         positions, mini, cfg,
+                                         reduce=self._reduce)
+        HD = heads.num_attention_heads * heads.head_dim
         mk = torch.stack([c.reshape(W, Tpb, HD) for c in mini.k])
         mv = torch.stack([c.reshape(W, Tpb, HD) for c in mini.v])
         if self._quantize:
             # quantize at the prefill -> decode boundary; appended rows use
             # the same scheme in the kernel
-            mk, mv = self._quantize(mk, cfg), self._quantize(mv, cfg)
+            mk, mv = self._quantize(mk, heads), self._quantize(mv, heads)
         st.kc[:, slots, off:off + Tpb] = mk
         st.vc[:, slots, off:off + Tpb] = mv
 
@@ -813,7 +954,7 @@ class Engine:
         req._resume_ids = (new_ids if prev is None
                            else np.concatenate([prev, new_ids]))
         self.slots[s] = None
-        self.state.active[s] = False
+        self._deactivate([s])
         # requeue at the back: long requests round-robin in time slices of
         # preempt_after_chunks chunks
         self.waiting.append(req)
@@ -869,8 +1010,7 @@ class Engine:
         if need_rows and self.ecfg.collect_hidden:
             # one read of only the needing slots' windows
             nb = min(need_hid, st.hiddens.shape[1])
-            hid_np = st.hiddens[torch.as_tensor(need_rows, device=self.device),
-                                :nb].cpu().numpy()
+            hid_np = self._slot_hiddens(need_rows, nb).cpu().numpy()
             hid_row = {s: i for i, s in enumerate(need_rows)}
         dev_gather: List = []  # (output_index, slot, total) finishing slots
         for s, req in enumerate(self.slots):
@@ -900,7 +1040,7 @@ class Engine:
                     elif req.stream_hiddens_dev:
                         # a copy of the slot's whole row, made before any
                         # later chunk or prefill rewrites it (stream order)
-                        new_hid = st.hiddens[s].clone()
+                        new_hid = self._slot_hiddens([s])[0]
                     else:
                         new_hid = (hid_np[hid_row[s], lo:n] if n > lo
                                    else np.zeros((0, D), np.float32))
@@ -950,12 +1090,14 @@ class Engine:
             self.stats["tokens_generated"] += total
             self.stats["requests_finished"] += 1
         if freed:
-            st.active[torch.as_tensor(freed, device=self.device)] = False
+            self._deactivate(freed)
         if dev_gather:
             # one gather for every slot finishing in this chunk; a copy, made
-            # before the freed slots' rows can be rewritten (stream order)
-            hb = st.hiddens[torch.as_tensor([s for _, s, _ in dev_gather],
-                                            device=self.device)]
+            # before the freed slots' rows can be rewritten (stream order).
+            # Sharded, only the rows the outputs keep cross ranks
+            rows = (None if self.mesh is None
+                    else max(1, max(n for _, _, n in dev_gather)))
+            hb = self._slot_hiddens([s for _, s, _ in dev_gather], rows)
             for row, (oi, _, n) in enumerate(dev_gather):
                 outputs[oi]._hb = hb
                 outputs[oi]._hb_row = row

@@ -118,9 +118,20 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ b.to(dt)
 
 
-def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """silu(x @ gate) * (x @ up), the input of ``down``."""
     gu = _einsum("btd,dci->btci", x, p["wgu"])  # (B, T, 2, I)
-    return _matmul(F.silu(gu[:, :, 0]) * gu[:, :, 1], p["down"])
+    return F.silu(gu[:, :, 0]) * gu[:, :, 1]
+
+
+def _project(a: torch.Tensor, w: torch.Tensor, reduce) -> torch.Tensor:
+    """a @ w; with ``reduce`` (a tensor-parallel rank's sum over ranks, in
+    place) the rank's f32 partial is summed across ranks and rounded once
+    to the product's dtype, as the whole product would be."""
+    if reduce is None:
+        return _matmul(a, w)
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return reduce(a.to(torch.float32) @ w.to(torch.float32)).to(dt)
 
 
 def _qkv(p: dict, x: torch.Tensor):
@@ -155,27 +166,31 @@ def _attend(q, k, v, bias, head_dim: int, dtype):
 
 def prefill_block(lp: dict, x: torch.Tensor, bias: torch.Tensor,
                   cos: torch.Tensor, sin: torch.Tensor, cfg: GPTConfig,
-                  dtype=torch.bfloat16):
-    """One layer of the full-sequence forward -> (x, k, v)."""
+                  dtype=torch.bfloat16, reduce=None):
+    """One layer of the full-sequence forward -> (x, k, v).  ``reduce``:
+    ``lp`` is a tensor-parallel rank's shard (its heads, its slice of I)
+    and the outputs of wo and down are summed over ranks with it."""
     eps = cfg.rms_norm_eps
     h = rms_norm(x, lp["ln1"], eps)
     q, k, v = _qkv(lp["attn"], h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    x = x + _matmul(_attend(q, k, v, bias, cfg.head_dim, dtype),
-                    lp["attn"]["wo"])
+    x = x + _project(_attend(q, k, v, bias, cfg.head_dim, dtype),
+                     lp["attn"]["wo"], reduce)
     h = rms_norm(x, lp["ln2"], eps)
-    return x + _mlp(lp["mlp"], h), k, v
+    x = x + _project(_swiglu(lp["mlp"], h), lp["mlp"]["down"], reduce)
+    return x, k, v
 
 
 def prefill(params: dict, emb: torch.Tensor, attn_mask: torch.Tensor,
             positions: torch.Tensor, cache: KVCache, cfg: GPTConfig,
-            dtype=torch.bfloat16):
+            dtype=torch.bfloat16, reduce=None):
     """Full-sequence forward; returns (hidden (B, T0, D) f32, cache).
 
     ``emb`` (B, T0, D), ``attn_mask`` (B, T0) bool (False at left padding),
     ``positions`` (B, T0) rope positions.  The cache's rows [0, T0) are
-    written in place.
+    written in place.  ``reduce``: ``params`` is a tensor-parallel rank's
+    shard and ``cache`` holds its heads (see :func:`prefill_block`).
     """
     cos_t, sin_t = rope_tables_torch(cfg, emb.device)
     cos, sin = cos_t[positions], sin_t[positions]
@@ -183,7 +198,7 @@ def prefill(params: dict, emb: torch.Tensor, attn_mask: torch.Tensor,
     x = emb.to(dtype)
     T0 = emb.shape[1]
     for li, lp in enumerate(params["layers"]):
-        x, k, v = prefill_block(lp, x, bias, cos, sin, cfg, dtype)
+        x, k, v = prefill_block(lp, x, bias, cos, sin, cfg, dtype, reduce)
         cache.k[li][:, :T0] = k.to(cache.k[li].dtype)
         cache.v[li][:, :T0] = v.to(cache.v[li].dtype)
     hidden = rms_norm(x, params["norm"], cfg.rms_norm_eps).to(torch.float32)
@@ -220,7 +235,7 @@ def decode_step(params: dict, emb: torch.Tensor, cache: KVCache, cur,
                     cfg.head_dim, dtype)
         x = x + _matmul(o, lp["attn"]["wo"])
         h = rms_norm(x, lp["ln2"], eps)
-        x = x + _mlp(lp["mlp"], h)
+        x = x + _matmul(_swiglu(lp["mlp"], h), lp["mlp"]["down"])
     hidden = rms_norm(x[:, 0], params["norm"], eps).to(torch.float32)
     return hidden, cache
 

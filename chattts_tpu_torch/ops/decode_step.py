@@ -43,6 +43,16 @@ combinations are three gemv instantiations times three attention ones.
   the kv4 cache's append alone (``decode_step.kv4_append_launches``), with
   :func:`kv4_append_plain` as its plain version.  The step never calls
   them.
+* :data:`decode_step_tp` is one step of a tensor-parallel rank: its slabs
+  (:func:`shard_packed`), its heads' caches (:class:`Heads`), and per
+  layer the qkv gemv, :data:`attend` (one layer's attention through the
+  library's ``decode_step_attend`` entry, counted in
+  ``decode_step.attend_launches``), the wo gemv into a partial summed over
+  the ranks by the caller's all_reduce, the gate/up and down gemvs, the
+  down partial summed likewise: the step's kernels launched one by one
+  (counted by variant in ``decode_step.tp_launches``).
+  :func:`decode_step_plain` given the rank's heads and the all_reduce is
+  its plain version.
 
 The caches are updated in place (the TPU kernel aliases them too): only row
 ``cur_b`` of row b of every layer is written.  The kv8 and kv4 row formats
@@ -69,7 +79,8 @@ the pair's scratch on every call and keeps its tickets (one counter per
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Union
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -84,6 +95,8 @@ MATRICES = ("wqkv", "wo", "wgu", "wd")
 # cache and position part of a variant's name, then the weight tier's
 VARIANTS = tuple(base + w for w in ("", "k4", "k5")
                  for base in ("k1", "k2", "k3", "k2k3", "k6", "k2k6"))
+# the tensor-parallel step's variants: a position per row, bf16 weights
+TP_VARIANTS = ("k2", "k2k3", "k2k6")
 
 
 def int4_group(D: int) -> int:
@@ -452,9 +465,42 @@ def kv4_append_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     v_rows[rows, cur[live].long()] = quantize(qkv[live, 2 * HD:], cfg)
 
 
+def attend_layer_plain(qkv: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor, k_rows: torch.Tensor,
+                       v_rows: torch.Tensor, cur: torch.Tensor,
+                       lo: torch.Tensor, heads) -> torch.Tensor:
+    """One layer's attention as the step does it with a position per row:
+    rope q and k of qkv (B, 3 HD) f32, write k and v (quantized on kv8 and
+    kv4) at row ``cur[b]`` of row b of the layer's caches (B, T, W), and
+    attend over rows [lo_b, cur_b]; returns o (B, HD) f32.  ``heads`` is
+    the config or a rank's :class:`Heads`."""
+    H, Dh = heads.num_attention_heads, heads.head_dim
+    HD = H * Dh
+    B, T = qkv.shape[0], k_rows.shape[1]
+    quantize = kv_quantizer(_check_caches(k_rows[None], v_rows[None], heads),
+                            heads)
+    dev = qkv.device
+    cur = cur.to(device=dev, dtype=torch.long)
+    rows = torch.arange(B, device=dev)
+    t = torch.arange(T, device=dev)
+    visible = ((t[None, :] >= lo[:, None].to(dev))
+               & (t[None, :] <= cur[:, None]))[:, None, :]
+    q = _rope(qkv[:, :HD], cos, sin, H)
+    k = _rope(qkv[:, HD:2 * HD], cos, sin, H)
+    v = qkv[:, 2 * HD:]
+    if quantize:
+        k_rows[rows, cur] = quantize(k, heads)
+        v_rows[rows, cur] = quantize(v, heads)
+    else:
+        k_rows[rows, cur] = k.to(k_rows.dtype)
+        v_rows[rows, cur] = v.to(v_rows.dtype)
+    return attend_plain(q, k_rows, v_rows, visible, heads)
+
+
 def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, cur: Union[int, torch.Tensor],
-                      lo: torch.Tensor, positions: torch.Tensor, cfg
+                      lo: torch.Tensor, positions: torch.Tensor, cfg,
+                      heads=None, all_reduce: Optional[Callable] = None
                       ) -> torch.Tensor:
     """Torch version of the step with the kernel's roundings, all variants.
 
@@ -466,10 +512,16 @@ def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
     With an int ``cur`` attention runs over rows [0, cur]; with a tensor it
     runs over all T rows under the mask [lo_b, cur_b], so that no position
     is read back from the device.
+
+    A tensor-parallel rank (the plain version of :meth:`DecodeStep.tp`)
+    passes its slabs (:func:`shard_packed`), caches of its ``heads``
+    (:class:`Heads`) and ``all_reduce``, which sums the rank's partial
+    (B, D) f32 after ``wo`` and after ``down`` over the ranks (in place,
+    returns it) before the residual adds it.
     """
-    H, Dh = cfg.num_attention_heads, cfg.head_dim
-    HD, I, eps = H * Dh, cfg.intermediate_size, cfg.rms_norm_eps
-    quantize = kv_quantizer(_check_caches(k_cache, v_cache, cfg), cfg)
+    heads = heads or cfg
+    reduce = all_reduce or (lambda t: t)
+    I, eps = packed["wgu"].shape[1] // 2, cfg.rms_norm_eps
     B, T = emb.shape[0], k_cache.shape[2]
     dev = emb.device
 
@@ -484,29 +536,69 @@ def decode_step_plain(packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
     else:
         Tv = cur + 1
         cur_rows = torch.full((B,), cur, dtype=torch.long, device=dev)
-    rows = torch.arange(B, device=dev)
-    t = torch.arange(Tv, device=dev)
-    visible = ((t[None, :] >= lo[:, None].to(dev))
-               & (t[None, :] <= cur_rows[:, None]))[:, None, :]  # (B, 1, Tv)
     x = emb.to(torch.float32)
     for li in range(packed["wqkv"].shape[0]):
         qkv = mm(_rms(x, packed["ln1"][li], eps), "wqkv", li)
-        q = _rope(qkv[:, :HD], cos, sin, H)
-        k = _rope(qkv[:, HD:2 * HD], cos, sin, H)
-        v = qkv[:, 2 * HD:]
-        if quantize:  # the f32 roped k and the f32 v are quantized
-            k_cache[li, rows, cur_rows] = quantize(k, cfg)
-            v_cache[li, rows, cur_rows] = quantize(v, cfg)
-        else:
-            k_cache[li, rows, cur_rows] = k.to(k_cache.dtype)
-            v_cache[li, rows, cur_rows] = v.to(v_cache.dtype)
-        o = attend_plain(q, k_cache[li, :, :Tv], v_cache[li, :, :Tv],
-                         visible, cfg)
-        x = x + mm(o, "wo", li)
+        o = attend_layer_plain(qkv, cos, sin, k_cache[li, :, :Tv],
+                               v_cache[li, :, :Tv], cur_rows, lo, heads)
+        x = x + reduce(mm(o, "wo", li))
         gu = mm(_rms(x, packed["ln2"][li], eps), "wgu", li)
         g, u = gu[:, :I], gu[:, I:]
-        x = x + mm(g * torch.sigmoid(g) * u, "wd", li)
+        x = x + reduce(mm(g * torch.sigmoid(g) * u, "wd", li))
     return x
+
+
+@dataclass(frozen=True)
+class Heads:
+    """The attention geometry of one tensor-parallel rank: its share of the
+    heads, their width and the layer count.  It stands in for the config
+    wherever a cache format or the attention reads heads (``kv_quant``,
+    :func:`attend_plain`, ``llama.KVCache.create``): a config with fewer
+    heads would derive another ``head_dim`` from its ``hidden_size``."""
+
+    num_attention_heads: int
+    head_dim: int
+    num_hidden_layers: int
+
+
+def local_heads(cfg, tp: int) -> Heads:
+    """The heads of one rank of ``tp``; raises unless ``tp`` divides both
+    the heads and the MLP's intermediate width."""
+    H, I = cfg.num_attention_heads, cfg.intermediate_size
+    if tp < 1 or H % tp or I % tp:
+        raise ValueError(f"tp={tp} must divide the {H} heads and the "
+                         f"intermediate size {I}")
+    return Heads(H // tp, cfg.head_dim, cfg.num_hidden_layers)
+
+
+def shard_packed(packed: dict, cfg, tp: int, rank: int) -> dict:
+    """Rank ``rank`` of ``tp``'s slabs of bf16 packed weights: the q, k and
+    v rows of its heads in ``wqkv`` ([q | k | v] of them, (L, 3 HD/tp, D)),
+    the gate and up rows of its slice of I in ``wgu`` ((L, 2 I/tp, D)), and
+    its columns of ``wo`` (L, D, HD/tp) and ``wd`` (L, D, I/tp); the norms
+    whole.  The JAX package's specs shard the same axes (heads of (D, 3, H,
+    Dh), columns of (D, 2, I), rows of wo and down).  Quantized tiers do
+    not shard: an int8 scale group spans D rows of the contraction, which
+    wo's HD/tp does not hold."""
+    if weight_bits_of(packed, cfg):
+        raise ValueError("quantized weights do not shard over tp: their "
+                         "scale groups span the whole contraction")
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside tp={tp}")
+    heads = local_heads(cfg, tp)
+    HD, I = cfg.num_attention_heads * cfg.head_dim, cfg.intermediate_size
+    hl, il = heads.num_attention_heads * heads.head_dim, I // tp
+
+    def rows(w, width, part):
+        return torch.cat([w[:, j * width + rank * part:
+                            j * width + (rank + 1) * part]
+                          for j in range(w.shape[1] // width)], dim=1)
+
+    return {"wqkv": rows(packed["wqkv"], HD, hl).contiguous(),
+            "wgu": rows(packed["wgu"], I, il).contiguous(),
+            "wo": packed["wo"][:, :, rank * hl:(rank + 1) * hl].contiguous(),
+            "wd": packed["wd"][:, :, rank * il:(rank + 1) * il].contiguous(),
+            "ln1": packed["ln1"], "ln2": packed["ln2"]}
 
 
 def _check_kv4_kernel(cfg) -> None:
@@ -531,6 +623,9 @@ class DecodeStep:
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         self.gemv_launches = 0  # launches of the one-gemv entry
         self.kv4_append_launches = 0  # launches of the one-append entry
+        self.attend_launches = 0  # launches of the one-layer attention entry
+        # tensor-parallel steps (:meth:`tp`) by variant, one per step
+        self.tp_launches = dict.fromkeys(TP_VARIANTS, 0)
         self.library = CudaLibrary("decode_step.cu", defines)
         self._chunk = None
         self._tickets: Dict[tuple, torch.Tensor] = {}
@@ -644,6 +739,133 @@ class DecodeStep:
             raise RuntimeError(f"decode_step_kv4_append failed with CUDA "
                                f"error {err}")
         self.kv4_append_launches += 1
+
+    def attend(self, qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               k_rows: torch.Tensor, v_rows: torch.Tensor, cur: torch.Tensor,
+               lo: torch.Tensor, o: torch.Tensor, heads) -> torch.Tensor:
+        """One layer's attention on its own, as the step runs it: qkv
+        (B, 3 HD) f32 from the qkv gemv, cos/sin (B, Dh) f32, the layer's
+        caches (B, T, W) of any tier with row ``cur[b]`` of row b appended,
+        cur and lo (B,); ``o`` (B, HD) f32 receives the output.  ``heads``
+        is the config or a tensor-parallel rank's :class:`Heads`.  CUDA
+        tensors launch the kv4 append (int4 cache) and the attention pair
+        through ``decode_step_attend`` (counted in ``attend_launches``),
+        CPU tensors take :func:`attend_layer_plain`; returns ``o``."""
+        H, Dh = heads.num_attention_heads, heads.head_dim
+        B, HD = qkv.shape[0], H * Dh
+        T = k_rows.shape[1]
+        kvb = _check_caches(k_rows[None], v_rows[None], heads)
+        if (tuple(qkv.shape) != (B, 3 * HD) or qkv.dtype != torch.float32
+                or tuple(cos.shape) != (B, Dh) or cos.shape != sin.shape
+                or k_rows.shape[0] != B or tuple(cur.shape) != (B,)
+                or tuple(lo.shape) != (B,) or tuple(o.shape) != (B, HD)
+                or o.dtype != torch.float32):
+            raise ValueError("attend takes qkv (B, 3 HD) f32, cos/sin (B, "
+                             "Dh), caches (B, T, W), cur and lo (B,), o "
+                             "(B, HD) f32")
+        tensors = (qkv, cos, sin, k_rows, v_rows, cur, lo, o)
+        if any(t.device != qkv.device for t in tensors):
+            raise ValueError("attend's tensors must be on one device")
+        if qkv.device.type == "cpu":
+            o.copy_(attend_layer_plain(qkv, cos, sin, k_rows, v_rows, cur, lo,
+                                       heads))
+            return o
+        if qkv.device.type != "cuda":
+            raise ValueError(f"attend runs on cuda or cpu, not {qkv.device}")
+        if kvb == 4:
+            _check_kv4_kernel(heads)
+        if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in (qkv, cos, sin, k_rows, v_rows, o)):
+            raise ValueError("attend's tensors must be contiguous and "
+                             "16-byte aligned")
+        cur32 = cur.to(torch.int32).contiguous()
+        lo32 = lo.to(torch.int32).contiguous()
+        S = -(-T // self.attn_chunk)
+        dev = qkv.device
+        scores = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+        cmax = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        part = torch.empty((B, H, S, Dh + 1), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        fn = self.library.get().decode_step_attend
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                 k_rows.data_ptr(), v_rows.data_ptr(), cur32.data_ptr(),
+                 lo32.data_ptr(), scores.data_ptr(), cmax.data_ptr(),
+                 part.data_ptr(), self.tickets(stream, B * H).data_ptr(),
+                 o.data_ptr(), B, T, H, Dh, kvb, 1.0 / float(np.sqrt(Dh)),
+                 stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"decode_step_attend failed with CUDA error "
+                               f"{err}")
+        self.attend_launches += 1
+        return o
+
+    def tp(self, packed: dict, emb: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor, cur: torch.Tensor, lo: torch.Tensor,
+           positions: torch.Tensor, cfg, heads: Heads,
+           all_reduce: Callable) -> torch.Tensor:
+        """One decode step on a tensor-parallel rank: its bf16 slabs
+        (:func:`shard_packed`), its heads' caches (L, B, T, W) (bf16, kv8 or
+        kv4 rows of ``heads``), a position per row ``cur`` (B,), lo and
+        positions (B,).  Per layer: the qkv gemv (rms prologue) on its
+        heads' rows, :meth:`attend`, the wo gemv into a partial that goes
+        through ``all_reduce`` (in place, returns it) and is added to the
+        residual, the gate/up gemv (rms) on its slice of I, the down gemv
+        (silu) into a partial, ``all_reduce``, added: the same kernels as
+        the whole step, launched one by one so the sums can cross ranks.
+        Returns the pre-final-norm residual (B, D) f32, equal on every
+        rank.  CPU tensors take :func:`decode_step_plain` with ``heads``
+        and ``all_reduce``; a CUDA step counts one launch under its variant
+        in ``tp_launches``."""
+        if emb.device.type == "cpu":
+            return decode_step_plain(packed, emb, k_cache, v_cache, cur, lo,
+                                     positions, cfg, heads, all_reduce)
+        if emb.device.type != "cuda":
+            raise ValueError(f"the decode step runs on cuda or cpu, not "
+                             f"{emb.device}")
+        if not isinstance(cur, torch.Tensor) or cur.ndim != 1:
+            raise ValueError("the tensor-parallel step takes a position per "
+                             "row: cur (B,)")
+        D, eps = cfg.hidden_size, cfg.rms_norm_eps
+        HD = heads.num_attention_heads * heads.head_dim
+        L, B = k_cache.shape[:2]
+        I = packed["wgu"].shape[1] // 2
+        want = {"wqkv": (L, 3 * HD, D), "wo": (L, D, HD), "wgu": (L, 2 * I, D),
+                "wd": (L, D, I)}
+        for name, shape in want.items():
+            if (tuple(packed[name].shape) != shape
+                    or packed[name].dtype != torch.bfloat16):
+                raise ValueError(f"packed[{name!r}] must be a bf16 {shape} "
+                                 f"slab")
+        variant = variant_of(k_cache, cur, cfg=heads)
+        dev = emb.device
+        x = emb.to(torch.float32).contiguous().clone()
+        cos, sin = rope_rows(cfg, positions)
+        cos, sin = cos.contiguous(), sin.contiguous()
+        # int32 once, so each layer's attend converts nothing
+        cur = cur.to(device=dev, dtype=torch.int32).expand(B).contiguous()
+        lo = lo.to(device=dev, dtype=torch.int32).contiguous()
+        qkv = torch.empty((B, 3 * HD), dtype=torch.float32, device=dev)
+        o = torch.empty((B, HD), dtype=torch.float32, device=dev)
+        gu = torch.empty((B, 2 * I), dtype=torch.float32, device=dev)
+        part = torch.empty((B, D), dtype=torch.float32, device=dev)
+        for li in range(L):
+            self.gemv(x, packed["ln1"][li], packed["wqkv"][li], None, 1, qkv,
+                      GEMV_RMS, False, eps)
+            self.attend(qkv, cos, sin, k_cache[li], v_cache[li], cur, lo, o,
+                        heads)
+            self.gemv(o, None, packed["wo"][li], None, 1, part, GEMV_NONE,
+                      False)
+            x += all_reduce(part)
+            self.gemv(x, packed["ln2"][li], packed["wgu"][li], None, 1, gu,
+                      GEMV_RMS, False, eps)
+            self.gemv(gu, None, packed["wd"][li], None, 1, part, GEMV_SILU,
+                      False)
+            x += all_reduce(part)
+        self.tp_launches[variant] += 1
+        return x
 
     @property
     def attn_chunk(self) -> int:
@@ -760,3 +982,5 @@ class DecodeStep:
 decode_step = DecodeStep()
 gemv = decode_step.gemv
 kv4_append = decode_step.kv4_append
+attend = decode_step.attend
+decode_step_tp = decode_step.tp

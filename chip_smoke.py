@@ -129,10 +129,24 @@
    restored into a template from another seed, whose next step equals the
    original's bit for bit.  The step launches none of the port's CUDA
    kernels; the ``kernels`` line is the decode step's.
+10. Multi-device serving (``phase_mesh``), after the engines: one rank on
+   NCCL, ``Engine(mesh=make_mesh(dp=1, tp=1))`` on the 24 requests at the
+   16-slot capacity geometry (K2+K3), ids and hiddens bit-equal to the
+   unsharded engine's; then two processes on the one card over gloo with
+   CUDA tensors: dp=2 (8 slots a rank) on the 24 requests and tp=2
+   (6 heads and 1536 MLP columns a rank) on the bf16 and the kv8 cache on
+   8 requests, each forced with an unsharded run's tokens: codes equal,
+   hiddens within their limits, kept ``decode_step_tp`` calls against
+   ``decode_step_plain`` of the same shards, the tp steps' launches
+   counted (rows "k2 tp2" and "k2k3 tp2" of the kernels line); the
+   dp-sharded decode stage against the single-rank decode.  Slot-steps/s
+   beside the unsharded engine's, the tp2 gemvs' us beside matmul and
+   their bound, one rank's tp step timed.
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``;
-``--train`` runs only ``phase_train`` (no build).
+``--train`` runs only ``phase_train`` (no build); ``--mesh`` builds, loads
+the chat and runs only ``phase_mesh`` (its reference run made there).
 
 TF32 is switched off for matmuls and cuDNN convolutions (the multi-segment
 phase turns cuDNN's back on for one encode, then restores it), so float32
@@ -563,23 +577,25 @@ def _library_weights(packed, cfg):
     return out
 
 
-def _library_step(packed, emb, kc, vc, cur, lo, positions, cfg):
+def _library_step(packed, emb, kc, vc, cur, lo, positions, cfg, heads=None):
     """The same step in torch.matmul + SDPA (timed only, as a yardstick) on
     bf16 weights (``_library_weights``); a quantized cache is dequantized
-    to bf16 for the attention call."""
+    to bf16 for the attention call.  A tensor-parallel rank's step passes
+    its slabs and ``heads`` (the all_reduce left out)."""
     import torch
     import torch.nn.functional as F
     from chattts_tpu_torch.ops import kv_quant
     from chattts_tpu_torch.ops.decode_step import kv_bits_of, rope_rows
 
-    H, Dh, I = cfg.num_attention_heads, cfg.head_dim, cfg.intermediate_size
-    HD, eps = H * Dh, cfg.rms_norm_eps
+    heads = heads or cfg
+    H, Dh = heads.num_attention_heads, heads.head_dim
+    HD, I, eps = H * Dh, packed["wgu"].shape[1] // 2, cfg.rms_norm_eps
     B, T = emb.shape[0], kc.shape[2]
     quantize, dequantize = {
         0: (None, None),
         8: (kv_quant.kv8_quantize, kv_quant.kv8_dequantize),
         4: (kv_quant.kv4_quantize, kv_quant.kv4_dequantize)}[
-            kv_bits_of(kc, cfg)]
+            kv_bits_of(kc, heads)]
     cos, sin = rope_rows(cfg, positions)
     cos, sin = cos[:, None, :], sin[:, None, :]
     cur_rows = _cur_rows(cur, B, emb.device)
@@ -604,10 +620,10 @@ def _library_step(packed, emb, kc, vc, cur, lo, positions, cfg):
         q, k = rope(qkv[:, :HD]), rope(qkv[:, HD:2 * HD])
         k, v = k.reshape(B, HD), qkv[:, 2 * HD:]
         if quantize:
-            kc[li, rows, cur_rows] = quantize(k, cfg)
-            vc[li, rows, cur_rows] = quantize(v, cfg)
-            keys = dequantize(kc[li, :, :Tv], cfg).bfloat16()
-            vals = dequantize(vc[li, :, :Tv], cfg).bfloat16()
+            kc[li, rows, cur_rows] = quantize(k, heads)
+            vc[li, rows, cur_rows] = quantize(v, heads)
+            keys = dequantize(kc[li, :, :Tv], heads).bfloat16()
+            vals = dequantize(vc[li, :, :Tv], heads).bfloat16()
         else:
             kc[li, rows, cur_rows] = k.bfloat16()
             vc[li, rows, cur_rows] = v.bfloat16()
@@ -3182,6 +3198,7 @@ def phase_engine(chat, kernels, launches):
     fold("k2k3", counts, check_kept_calls(chat.packed, norm, cfg, keeper.kept,
                                           "engine", 2))
     _print_engine_run("engine", eng, outs, wall)
+    first_run = _run_summary(eng, outs, wall)  # phase_mesh's reference
     del keeper, outs, eng
 
     # the same requests as the facade's capacity tier runs them: a request
@@ -3285,6 +3302,7 @@ def phase_engine(chat, kernels, launches):
                 "k2", cfg, echat.packed, emb, kc0, vc0, cur, lo, pos,
                 "the use_engine run's 40th code step", profile=True))
         del echat, keeper
+    return first_run
 
 
 def phase_engine_64(chat, kernels, launches):
@@ -3351,6 +3369,548 @@ def phase_engine_64(chat, kernels, launches):
         "k2k6k4", cfg, packed8, emb, kc0, vc0, cur, lo, pos,
         "the 64-slot run's first step after the slots turned over",
         profile=True))
+
+
+# multi-device serving (phase_mesh): the 16-slot capacity geometry without
+# preemption; the tp runs take the first MESH_TP_REQUESTS of the 24
+# requests, at most MESH_TP_NEW new tokens each (a gloo tp step syncs 40
+# times through the host: 70-87 ms a step, NVIDIA H100 80GB HBM3 at
+# 700 W)
+MESH_TP_REQUESTS, MESH_TP_NEW = 8, 96
+MESH_KEEP = (0, 40)   # tp step calls kept and held to the plain version
+# the dp-sharded decode stage against the single-rank decode, of the peak:
+# the ranks decode 2 of the 4 rows where one rank decodes 4, and a
+# convolution may pick another algorithm for another batch (TF32 off)
+MESH_DECODE_RTOL = 1e-5
+# teacher-forced sharded runs against the unsharded run: the share of own
+# draws that agree with the forced token.  tp sums wo's and down's
+# contractions in two parts and a dp rank runs its products at its own
+# batch, which moves a bf16 rounding of a layer's input now and then, and
+# random weights leave many near-ties in the sampler: measured 0.82 (tp,
+# bf16 cache); a wrong shard draws near chance
+MESH_AGREE = 0.6
+TP_ROWS = {0: ("k2 tp2", "k2_decode_step_tp2"),
+           8: ("k2k3 tp2", "k2k3_decode_step_per_slot_kv8_tp2")}
+
+
+def _tp_requests(cfg):
+    import dataclasses
+
+    return [dataclasses.replace(r, max_new=min(r.max_new, MESH_TP_NEW))
+            for r in _engine_requests(cfg)[:MESH_TP_REQUESTS]]
+
+
+def _mesh_geometry(chat):
+    import dataclasses
+
+    tier = chat._code_engine_geometry("capacity")
+    return dataclasses.replace(tier, preempt_after_chunks=None)
+
+
+def _mesh_weights(dev):
+    """The decoder, embedding, mel decoder and Vocos weights that
+    ``Chat.load(source="random", seed=0)`` draws, in its order."""
+    import torch
+    from chattts_tpu_torch.config import Config
+    from chattts_tpu_torch.models import dvae, embed, llama, vocos
+    from chattts_tpu_torch.weights import to_device
+
+    cfg = Config()
+    gen = torch.Generator().manual_seed(0)
+    trees = (llama.init_params(gen, cfg.gpt), embed.init_params(gen, cfg.gpt),
+             dvae.init_decoder_params(gen, cfg.decoder),
+             vocos.init_params(gen, cfg.vocos))
+    return cfg, [to_device(t, dev) for t in trees]
+
+
+def _fingerprint(gpt, embed):
+    return (float(gpt["layers"][0]["attn"]["wqkv"].float().sum()),
+            float(gpt["layers"][-1]["mlp"]["down"].float().sum()),
+            float(embed["head_code"].sum()))
+
+
+def _mesh_teacher(eng, ref, nvq, eos, agree):
+    """``sampling.sample`` forcing ``ref``'s tokens on the engine's rows
+    (row r is global slot eng._base + r), recording whether its own draw
+    agreed."""
+    import numpy as np
+    import torch
+    from chattts_tpu_torch.engine import batching
+
+    real = batching.sampling.sample
+
+    def sample(logits, *args, **kwargs):
+        own = real(logits, *args, **kwargs).reshape(-1, nvq)
+        depth = args[3].reshape(-1, nvq)[:, 0].tolist()
+        want = own.clone()
+        for row in range(eng._slots_local):
+            req = eng.slots[eng._base + row]
+            if req is None:
+                continue
+            ids, reason = ref[req.request_id]
+            if depth[row] < len(ids):
+                want[row] = torch.from_numpy(ids[depth[row]].astype(np.int64)
+                                             ).to(own.device)
+                agree.append(bool(torch.equal(own[row], want[row])))
+            elif reason == "eos":
+                want[row] = eos
+        return want.reshape(-1)
+
+    return sample
+
+
+class _TpKeeper:
+    """Stands in for ``decode_step_tp``: calls through, and keeps the
+    inputs (copies) and result of the calls numbered in ``keep``."""
+
+    def __init__(self, keep):
+        from chattts_tpu_torch.ops.decode_step import decode_step_tp
+
+        self.inner, self.keep, self.kept, self.n = decode_step_tp, keep, [], 0
+
+    def __call__(self, packed, emb, kc, vc, cur, lo, pos, cfg, heads, reduce):
+        keep = self.n in self.keep
+        self.n += 1
+        if not keep:
+            return self.inner(packed, emb, kc, vc, cur, lo, pos, cfg, heads,
+                              reduce)
+        before = tuple(t.clone() for t in (emb, kc, vc, cur, lo, pos))
+        x = self.inner(packed, emb, kc, vc, cur, lo, pos, cfg, heads, reduce)
+        self.kept.append((before, x.clone()))
+        return x
+
+
+def _rank_engine(eng, reqs, ref=None):
+    """A rank's ``eng.generate`` with the launch counts set to 0 just
+    before and read just after (forcing ``ref``'s tokens where given):
+    (outputs, wall s, counts, agreeing share)."""
+    import numpy as np
+    import torch
+    from chattts_tpu_torch.engine import batching
+    from chattts_tpu_torch.ops.decode_step import decode_step
+
+    agree, real = [], batching.sampling.sample
+    if ref is not None:
+        batching.sampling.sample = _mesh_teacher(
+            eng, ref, eng.cfg.num_vq, eng.cfg.num_audio_tokens - 1, agree)
+    decode_step.launches = 0
+    decode_step.tp_launches = dict.fromkeys(decode_step.tp_launches, 0)
+    decode_step.gemv_launches = decode_step.attend_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        outs = eng.generate(reqs)
+        torch.cuda.synchronize()
+    finally:
+        batching.sampling.sample = real
+    wall = time.perf_counter() - t0
+    counts = {"step": dict(decode_step.variant_launches),
+              "tp": dict(decode_step.tp_launches),
+              "gemv": decode_step.gemv_launches,
+              "attend": decode_step.attend_launches}
+    return outs, wall, counts, float(np.mean(agree)) if agree else None
+
+
+def _run_summary(eng, outs, wall):
+    return {"ids": {o.request_id: o.ids for o in outs},
+            "reasons": {o.request_id: o.finish_reason for o in outs},
+            "hiddens": {o.request_id: o.host_hiddens() for o in outs},
+            "order": [o.request_id for o in outs], "wall": wall,
+            "stats": dict(eng.stats)}
+
+
+def _mesh_rank(rank, n, spk_emb_ids, refs):
+    """One of two ranks on the one card (gloo, CUDA tensors): dp=2 on the
+    16-slot int8-cache tier on the 24 engine requests, once free-running
+    (timed: the forcing reads every step's depths back to the host) and
+    once forced with the unsharded run's tokens, then tp=2 on the
+    bf16 and the kv8 cache on the first MESH_TP_REQUESTS, each forced with
+    an unsharded run's tokens (``refs``), with kept calls of the tp step
+    held to its plain version; the dp-sharded decode stage on the dp run's
+    hiddens.  Returns what the parent checks."""
+    import torch
+    from chattts_tpu_torch.engine import batching
+    from chattts_tpu_torch.graft_entry import decode_dp
+    from chattts_tpu_torch.models import dvae, llama, vocos
+    from chattts_tpu_torch.ops import decode_step as ds
+    from chattts_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg, (gpt, embed, dec, voc) = _mesh_weights(dev)
+    out = {"fingerprint": _fingerprint(gpt, embed)}
+    gcfg = cfg.gpt
+    ecfg = refs["geometry"]
+
+    def engine(mesh, kv_bits):
+        return batching.Engine(gcfg, ecfg, gpt, embed,
+                               spk_emb_ids=spk_emb_ids, kv_bits=kv_bits,
+                               mesh=mesh)
+
+    # dp=2: each rank owns 8 of the 16 slots
+    dp_mesh = mesh_mod.make_mesh(dp=2, tp=1)
+    eng = engine(dp_mesh, 8)
+    outs, wall, _, _ = _rank_engine(eng, _engine_requests(gcfg))
+    out["dp_free"] = _run_summary(eng, outs, wall)
+    eng = engine(dp_mesh, 8)
+    outs, wall, counts, agree = _rank_engine(eng, _engine_requests(gcfg),
+                                             refs["dp"])
+    out["dp"] = dict(_run_summary(eng, outs, wall), counts=counts,
+                     agree=agree)
+    hid = torch.stack([o.dev_hiddens()[:32] for o in outs[:4]])
+    wav = decode_dp(dec, voc, hid, dp_mesh, cfg.decoder, cfg.vocos)
+    single = vocos.decode(voc, dvae.decode_from_hidden(dec, hid, cfg.decoder),
+                          cfg.vocos)
+    out["decode"] = {"shape": tuple(wav.shape),
+                     "err": float((wav - single).abs().max()),
+                     "peak": float(single.abs().max())}
+    del eng, outs
+
+    # tp=2 on the bf16 and the kv8 cache, teacher-forced
+    tp_mesh = mesh_mod.make_mesh(dp=1, tp=2)
+    reqs = _tp_requests(gcfg)
+    out["tp"] = {}
+    for kv_bits in (0, 8):
+        eng = engine(tp_mesh, kv_bits)
+        keeper = _TpKeeper(MESH_KEEP)
+        batching.step_mod.decode_step_tp = keeper
+        try:
+            outs, wall, counts, agree = _rank_engine(eng, reqs,
+                                                     refs["tp"][kv_bits])
+        finally:
+            batching.step_mod.decode_step_tp = keeper.inner
+        errs = []
+        for (emb, kc, vc, cur, lo, pos), xk in keeper.kept:
+            xp = ds.decode_step_plain(eng.packed, emb, kc, vc, cur, lo, pos,
+                                      gcfg, eng._heads, eng._reduce)
+            hk = llama.rms_norm(xk, gpt["norm"], gcfg.rms_norm_eps)
+            hp = llama.rms_norm(xp, gpt["norm"], gcfg.rms_norm_eps)
+            errs.append(float((hk - hp).abs().max())
+                        if bool(torch.isfinite(hk).all()) else float("inf"))
+        out["tp"][kv_bits] = dict(_run_summary(eng, outs, wall),
+                                  counts=counts, agree=agree, kept=errs,
+                                  kept_rows=[k[0][0].shape[0]
+                                             for k in keeper.kept])
+        del eng, outs, keeper
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_hidden_gaps(run, want):
+    """How far a run's kept hiddens lie from ``want``'s: (the largest gap
+    of a request's first hidden over its limit, HIDDEN_ATOL and one bf16
+    ulp of the value, 2^-7 of it: the first hidden is the prefill's output,
+    rounded to bf16 as the reference's prefill rounds it, and a value of 8
+    or more is 0.0625 from its neighbours; the largest gap of the later
+    ones, the steps' f32 hiddens)."""
+    import numpy as np
+
+    first = later = 0.0
+    for rid, w in want["hiddens"].items():
+        g = run["hiddens"][rid]
+        limit = HIDDEN_ATOL + 2.0 ** -7 * np.maximum(np.abs(w[0]),
+                                                     np.abs(g[0]))
+        first = max(first, float((np.abs(g[0] - w[0]) / limit).max()))
+        if len(w) > 1:
+            later = max(later, float(np.abs(g[1:] - w[1:]).max()))
+    return first, later
+
+
+def _tp_step_bound_ms(cfg, seen, kv_bits, tp):
+    """Least time of one rank's tensor-parallel step (_step_bound_ms for
+    the rank's slabs and heads): its weights once, its heads' visible and
+    appended cache rows, its input and output rows and the two partials a
+    layer it writes and reads back after the all_reduce."""
+    from types import SimpleNamespace
+
+    D, L = cfg.hidden_size, cfg.num_hidden_layers
+    Il, Hl = cfg.intermediate_size // tp, cfg.num_attention_heads // tp
+    HDl = Hl * cfg.head_dim
+    local = SimpleNamespace(num_attention_heads=Hl, head_dim=cfg.head_dim)
+    row_bytes, read_bytes = _kv_row_bytes(local, kv_bits)
+    B, rows = len(seen), sum(seen)
+    live = sum(1 for s in seen if s > 0)
+    values = L * (3 * HDl * D + D * HDl + 2 * Il * D + D * Il)
+    nbytes = (2 * values + 2 * L * D * 4
+              + 2 * L * ((rows - live) * read_bytes + live * row_bytes)
+              + 2 * B * D * 4 + 2 * B * cfg.head_dim * 4 + 3 * B * 4
+              + 2 * L * 2 * B * D * 4)
+    flops = 2 * B * values + 4 * L * rows * HDl
+    return _bound_ms(nbytes, flops)
+
+
+def _time_tp_step(chat, kv_bits, dev):
+    """One rank's tp=2 step (rank 0's slabs and heads) on seeded caches at
+    the tp runs' shape (16 slots, T 2560, 100..200 prompt tokens, 0..255
+    generated), the all_reduce left out (an identity: gloo's would time
+    the host): kernel, plain, library (matmul + SDPA at the rank's shapes,
+    ``_library_step``) and bound ms."""
+    import torch
+    from chattts_tpu_torch.ops import decode_step as ds
+
+    cfg = chat.config.gpt
+    heads = ds.local_heads(cfg, 2)
+    packed = ds.shard_packed(chat.packed, cfg, 2, 0)
+    L, B, T = cfg.num_hidden_layers, 16, 2560
+    tgen = torch.Generator().manual_seed(5)
+    cur = (512 + torch.randint(0, 256, (B,), generator=tgen)).to(dev)
+    lo = (512 - torch.randint(100, 201, (B,), generator=tgen)).to(dev)
+    HDl = heads.num_attention_heads * heads.head_dim
+    kk, vk = _random_caches((L, B, T, HDl), kv_bits, heads, tgen, dev)
+    emb = (torch.randn((B, cfg.hidden_size), generator=tgen) * 0.3).to(dev)
+    pos = cur - lo
+
+    def same(t):
+        return t
+
+    ms = _time_ms(lambda: ds.decode_step_tp(packed, emb, kk, vk, cur, lo, pos,
+                                            cfg, heads, same))
+    plain_ms = _time_ms(lambda: ds.decode_step_plain(
+        packed, emb, kk, vk, cur, lo, pos, cfg, heads, same), iters=5)
+    lib_ms = _time_ms(lambda: _library_step(packed, emb, kk, vk, cur, lo, pos,
+                                            cfg, heads), iters=5)
+    bound_ms, by = _tp_step_bound_ms(cfg, (cur - lo + 1).tolist(), kv_bits, 2)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def _time_tp_gemvs(dev, B=16):
+    """The tp=2 rank's four gemv shapes at ``B`` rows (the 16-slot tier on
+    one rank): the kernel (one-gemv entry, cold weights), torch.matmul of
+    the same bf16 product and the bound, in us."""
+    import torch
+    from chattts_tpu_torch.config import Config
+    from chattts_tpu_torch.ops import decode_step as ds
+
+    cfg = Config().gpt
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    HDl = cfg.num_attention_heads * cfg.head_dim // 2
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for shape, N, K, mode in (("qkv", 3 * HDl, D, ds.GEMV_RMS),
+                              ("wo", D, HDl, ds.GEMV_NONE),
+                              ("gate/up", I, D, ds.GEMV_RMS),
+                              ("down", D, I // 2, ds.GEMV_SILU)):
+        x = torch.randn((B, 2 * K if mode == ds.GEMV_SILU else K),
+                        generator=gen, device=dev)
+        lnw = 1 + 0.1 * torch.randn((K,), generator=gen, device=dev)
+        w = (0.02 * torch.randn((N, K), generator=gen, device=dev)).bfloat16()
+        out = torch.empty((B, N), device=dev)
+        got = ds.decode_step.gemv(x, lnw, w, None, 1, out.clone(), mode,
+                                  False)
+        want = ds.gemv_plain(x, lnw, w, None, 1, out, mode, False)
+        bound = ds.gemv_tolerance(x, lnw, w, None, 1, out, mode, False)
+        reading = float(((got.double() - want.double()).abs() / bound).max())
+        check(reading <= 1.0, f"tp gemv {shape} exceeds its bound: {reading}")
+        cold = _cold_copies(w)
+        us = 1e3 * _device_ms(lambda: ds.decode_step.gemv(
+            x, lnw, next(cold)[0], None, 1, out, mode, False))
+        xm = torch.randn((B, K), device=dev).bfloat16()
+        cold = _cold_copies(w)
+        lib_us = 1e3 * _device_ms(lambda: xm @ next(cold)[0].T)
+        bound_ms, by = _bound_ms(*_gemv_work(B, N, K, 0, None, x.shape[1],
+                                             False, mode == ds.GEMV_RMS))
+        print(f"tp2 gemv {shape} {N}x{K} bf16 B {B}: kernel {us:.2f} us, "
+              f"matmul {lib_us:.2f} us, bound {1e3 * bound_ms:.3f} us "
+              f"({by}); reading {reading:.3e} of its error bound")
+
+
+def _unsharded_run(chat, ecfg, reqs, kv_bits):
+    import torch
+    from chattts_tpu_torch.engine import batching
+
+    eng = batching.Engine(chat.config.gpt, ecfg, chat.gpt_params,
+                          chat.embed_params,
+                          spk_emb_ids=chat.tokenizer.spk_emb_ids,
+                          packed=chat.packed, kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    return _run_summary(eng, outs, time.perf_counter() - t0)
+
+
+def _slot_steps(run):
+    return run["stats"]["tokens_generated"] / run["wall"]
+
+
+def phase_mesh(chat, kernels, launches, ref=None):
+    """Multi-device serving on the one card.  (a) One rank on NCCL:
+    ``Engine(mesh=make_mesh(dp=1, tp=1))`` at the 16-slot capacity
+    geometry (int8 cache, K2+K3) on the 24 engine requests, ids and
+    hiddens bit-equal to the unsharded engine's (``ref``: phase_engine's
+    first run, made here when None).  (b) Two processes on the card over
+    gloo with CUDA tensors (_mesh_rank): dp=2 on the 24 requests and tp=2
+    on the bf16 and kv8 caches, each forced with an unsharded run's tokens
+    (``ref``'s for dp): the codes equal, the hiddens within their limits
+    (_sharded_hidden_gaps), kept tp steps held to the plain version, the
+    tp launches counted (rows of their own on the kernels line); the
+    dp-sharded decode stage against the single-rank decode.  Slot-steps/s beside the unsharded engine's, the tp2
+    gemvs' times, one rank's tp step timed (kernels, plain, bound)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from chattts_tpu_torch.engine import batching
+    from chattts_tpu_torch.parallel import comm
+    from chattts_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = chat.config.gpt
+    ecfg = _mesh_geometry(chat)
+    if ref is None:
+        ref = _unsharded_run(chat, ecfg, _engine_requests(cfg), 8)
+    for kvb, (row, name) in TP_ROWS.items():
+        kernels.setdefault(row, {
+            "name": name, "route": "cuda",
+            "source": "chattts_tpu_torch/csrc/decode_step.cu",
+            "replaces": "chattts_tpu/ops/pallas_step.py:268",
+            "max_abs_err": 0.0})
+
+    def same_as(run, want, what):
+        check(run["order"] == want["order"], f"{what}: finish order differs")
+        for rid, ids in want["ids"].items():
+            got, hid = run["ids"][rid], run["hiddens"][rid]
+            same_ids = np.array_equal(got, ids)
+            gap = (np.abs(hid - want["hiddens"][rid]).max() if same_ids
+                   else "n/a")
+            check(same_ids and np.array_equal(hid, want["hiddens"][rid]),
+                  f"{what}: {rid}'s ids {'equal' if same_ids else 'differ'}"
+                  f" ({len(got)} and {len(ids)} tokens), hiddens {gap} off "
+                  f"the unsharded engine's")
+
+    def forced_as(run, want, what):
+        # a run forced with want's tokens: the same codes, order and
+        # finishes, hiddens within their limits, own draws mostly agreeing
+        check(run["order"] == want["order"], f"{what}: finish order differs")
+        for rid, ids in want["ids"].items():
+            check(np.array_equal(run["ids"][rid], ids)
+                  and run["reasons"][rid] == want["reasons"][rid],
+                  f"{what}: {rid}'s codes differ")
+        first, later = run["gaps"]
+        check(first <= 1.0 and later <= HIDDEN_ATOL
+              and run["agree"] >= MESH_AGREE,
+              f"{what}: hiddens off the unsharded run's (prefill {first} of "
+              f"its limit; steps {later}), own draws agreeing "
+              f"{run['agree']}")
+
+    # (a) one rank on NCCL
+    comm.initialize_distributed(f"127.0.0.1:{comm.free_port()}", 1, 0,
+                                backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", "the world-1 group is not NCCL")
+        eng = batching.Engine(cfg, ecfg, chat.gpt_params, chat.embed_params,
+                              spk_emb_ids=chat.tokenizer.spk_emb_ids,
+                              packed=chat.packed,
+                              mesh=mesh_mod.make_mesh(dp=1, tp=1))
+        outs, wall, counts, keeper = _engine_run(
+            eng, _engine_requests(cfg), lambda n, cur, kc: n in (0, 40))
+        run = _run_summary(eng, outs, wall)
+        same_as(run, ref, "the NCCL world-1 engine")
+        _fold(kernels, launches, counts, "k2k3", check_kept_calls(
+            chat.packed, chat.gpt_params["norm"], cfg, keeper.kept,
+            "the NCCL world-1 engine", 2))
+        print(f"mesh nccl dp=1 tp=1: 24 requests bit-equal to the unsharded "
+              f"engine; {_slot_steps(run):.1f} slot-steps/s against the "
+              f"unsharded {_slot_steps(ref):.1f}")
+        del eng, outs, keeper
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the card over gloo
+    tp_reqs = _tp_requests(cfg)
+    tp_refs = {kvb: _unsharded_run(chat, ecfg, tp_reqs, kvb) for kvb in (0, 8)}
+    def tokens(r):
+        return {rid: (r["ids"][rid], r["reasons"][rid]) for rid in r["ids"]}
+
+    refs = {"geometry": ecfg, "dp": tokens(ref),
+            "tp": {kvb: tokens(r) for kvb, r in tp_refs.items()}}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_mesh_rank, 2, (chat.tokenizer.spk_emb_ids, refs),
+                       backend="gloo", timeout_s=400)
+    print(f"mesh: two gloo ranks on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    want_fp = _fingerprint(chat.gpt_params, chat.embed_params)
+    L = cfg.num_hidden_layers
+    for r, got in enumerate(ranks):
+        dp, free, dec = got["dp"], got["dp_free"], got["decode"]
+        dp["gaps"] = _sharded_hidden_gaps(dp, ref)
+        same = sum(np.array_equal(free["ids"][rid], ids)
+                   for rid, ids in ref["ids"].items())
+        print(f"mesh gloo dp=2 rank {r}: free-running, "
+              f"{free['stats']['steps_launched']} steps, wall "
+              f"{free['wall']:.3f} s, {_slot_steps(free):.1f} slot-steps/s "
+              f"against the unsharded {_slot_steps(ref):.1f}, {same} of "
+              f"{len(ref['ids'])} requests' codes equal to its; forced with "
+              f"its tokens: hiddens from its: the prefill's (bf16) "
+              f"{dp['gaps'][0]:.3f} of its limit, the steps' "
+              f"{dp['gaps'][1]:.3e}; own draws agreeing {dp['agree']:.3f}, "
+              f"wall {dp['wall']:.3f} s; decode stage {dec['shape']} within "
+              f"{dec['err']:.3e} of the single-rank decode (peak "
+              f"{dec['peak']:.3e})")
+        for kvb, tp in got["tp"].items():
+            want = tp_refs[kvb]
+            first, later = _sharded_hidden_gaps(tp, want)
+            tp["gaps"] = (first, later)
+            steps = tp["stats"]["steps_launched"]
+            print(f"mesh gloo tp=2 kv_bits={kvb} rank {r}: "
+                  f"{MESH_TP_REQUESTS} requests forced with the unsharded "
+                  f"run's tokens; hiddens from the unsharded run's: the "
+                  f"prefill's (bf16) {first:.3f} of its limit, the steps' "
+                  f"{later:.3e}; "
+                  f"own draws agreeing {tp['agree']:.3f}; kept tp steps "
+                  f"({tp['kept_rows']} rows) against the plain version "
+                  f"{[round(e, 5) for e in tp['kept']]}; {steps} steps, "
+                  f"wall {tp['wall']:.3f} s, {1e3 * tp['wall'] / steps:.2f} "
+                  f"ms a step, {_slot_steps(tp):.1f} slot-steps/s against "
+                  f"the unsharded {_slot_steps(want):.1f} ("
+                  f"{1e3 * want['wall'] / want['stats']['steps_launched']:.2f} "
+                  f"ms a step)")
+    for r, got in enumerate(ranks):
+        check(got["fingerprint"] == want_fp,
+              f"rank {r}'s weights are not the chat's")
+        dp = got["dp"]
+        forced_as(dp, ref, f"dp=2 rank {r}")
+        steps = dp["stats"]["steps_launched"]
+        check(dp["counts"]["step"]["k2k3"] == steps > 0
+              and sum(dp["counts"]["step"].values()) == steps,
+              f"dp=2 rank {r}: launches {dp['counts']} for {steps} steps")
+        launches["k2k3"] += steps
+        dec = got["decode"]
+        check(dec["err"] <= MESH_DECODE_RTOL * max(1.0, dec["peak"]),
+              f"rank {r}: the dp-sharded decode differs by {dec['err']}")
+        for kvb, tp in got["tp"].items():
+            want = tp_refs[kvb]
+            row, _ = TP_ROWS[kvb]
+            variant = "k2k3" if kvb else "k2"
+            steps = tp["stats"]["steps_launched"]
+            c = tp["counts"]
+            check(c["tp"][variant] == steps > 0
+                  and sum(c["tp"].values()) == steps
+                  and sum(c["step"].values()) == 0
+                  and c["attend"] == L * steps
+                  and c["gemv"] == 4 * L * steps,
+                  f"tp=2 kv{kvb} rank {r}: launches {c} for {steps} steps")
+            forced_as(tp, want, f"tp=2 kv{kvb} rank {r}")
+            check(len(tp["kept"]) == len(MESH_KEEP)
+                  and max(tp["kept"]) <= HIDDEN_ATOL,
+                  f"tp=2 kv{kvb} rank {r}: kept steps against the plain "
+                  f"version {tp['kept']}")
+            launches[row] += steps
+            entry = kernels[row]
+            entry["max_abs_err"] = max(entry["max_abs_err"], *tp["kept"])
+    check(all(np.array_equal(ranks[0]["tp"][k]["ids"][rid],
+                             ranks[1]["tp"][k]["ids"][rid])
+              for k in (0, 8) for rid in ranks[0]["tp"][k]["ids"]),
+          "the tp ranks' codes differ")
+    _time_tp_gemvs(chat.gpt_params["norm"].device)
+    for kvb, (row, _) in TP_ROWS.items():
+        kernels[row].update(_time_tp_step(chat, kvb,
+                                          chat.gpt_params["norm"].device))
+        k = kernels[row]
+        print(f"{row}: one rank's step (all_reduce left out) kernel "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
 
 
 # the training step (phase_train): the default config at B 8, T 1024, lr
@@ -3817,6 +4377,18 @@ def main():
         print(f"chip_smoke --gemv: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        from chattts_tpu_torch import Chat
+
+        phase_build()
+        chat = Chat()
+        chat.load(source="random", seed=0)
+        kernels, launches = {}, collections.Counter()
+        phase_mesh(chat, kernels, launches)
+        print("launches by row:", dict(launches))
+        print(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
 
     def lap(name, t=[t_start]):
         now = time.perf_counter()
@@ -3874,11 +4446,15 @@ def main():
     lap("serving")
     del engine_chat
     torch.cuda.empty_cache()
-    phase_engine(chat, kernels, launches)
+    first_run = phase_engine(chat, kernels, launches)
     phase_engine_wide(chat, kernels, launches)
     torch.cuda.empty_cache()
     phase_engine_64(chat, kernels, launches)
     lap("engines")
+    torch.cuda.empty_cache()
+    phase_mesh(chat, kernels, launches, first_run)
+    del first_run
+    lap("mesh")
     del chat
     torch.cuda.empty_cache()
     phase_train(dev)

@@ -39,6 +39,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {"kv_quant.py", "threefry.py", "batching.py", "decode_step.py",
             "streaming.py", "serving.py", "api_server.py", "audio.py",
             "logger.py", "seeder.py", "train.py", "checkpoint.py",
+            "comm.py", "mesh.py", "graft_entry.py",
             "chip_smoke.py"} <= {p.name
                                                           for p in files}
     bad = []
@@ -139,7 +140,7 @@ def test_cuda_sources_stand_alone():
     text = (csrc / "decode_step.cu").read_text()
     for kernel in ("gemv_kernel", "attend_scores_kernel",
                    "attend_values_kernel", "kv4_append_kernel",
-                   "decode_step_launch"):
+                   "decode_step_launch", "decode_step_attend"):
         assert kernel in text
     assert "rope_append_attend_kernel" not in text  # replaced by the pair
     for tier in ("W_INT8", "W_INT4", "KV_INT8", "KV_INT4"):

@@ -593,3 +593,143 @@ def test_istft_on_card_matches_cpu(cuda):
     got = istft(spec.to(cuda), 1024, 256).cpu()
     torch.testing.assert_close(got, istft(spec, 1024, 256), atol=1e-5,
                                rtol=0)
+
+
+# the full model's heads, and a tensor-parallel rank's half of them
+ATTEND_GEOMETRIES = {
+    "12 heads": GPTConfig(hidden_size=768, intermediate_size=256,
+                          num_attention_heads=12, num_hidden_layers=1,
+                          max_position_embeddings=512),
+    "6 heads": GPTConfig(hidden_size=384, intermediate_size=256,
+                         num_attention_heads=6, num_hidden_layers=1,
+                         max_position_embeddings=512),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom,kv_bits", [("12 heads", 0), ("12 heads", 8),
+                                          ("12 heads", 4), ("6 heads", 0),
+                                          ("6 heads", 8)])
+def test_attend_is_the_attention_of_the_step(cuda, geom, kv_bits):
+    """``decode_step_attend`` equals the attention of a whole-step launch,
+    bit for bit: one layer whose wo is the identity and whose down is zero
+    gives x + bf16(o) exactly, and the appended cache rows."""
+    cfg = ATTEND_GEOMETRIES[geom]
+    B, T = 8, 256
+    D = cfg.hidden_size
+    params, packed, kc, vc, emb = _inputs(cfg, B, T, cuda)
+    packed["wo"] = torch.eye(D, device=cuda, dtype=torch.bfloat16)[None]
+    packed["wd"] = torch.zeros_like(packed["wd"])
+    if kv_bits:
+        quantize = kv_quant.kv_quantizer(kv_bits, cfg)
+        kc, vc = quantize(kc.float(), cfg), quantize(vc.float(), cfg)
+    gen = torch.Generator().manual_seed(5)
+    cur = torch.randint(1, T, (B,), generator=gen)
+    cur[1] = T - 1
+    lo = torch.randint(0, T, (B,), generator=gen) % (cur + 1)
+    lo[0] = cur[0]
+    cur, lo = cur.to(cuda), lo.to(cuda)
+    pos = cur - lo
+    ks, vs = kc.clone(), vc.clone()
+    x = k1.decode_step(packed, emb, ks, vs, cur, lo, pos, cfg)
+
+    HD = cfg.num_attention_heads * cfg.head_dim
+    qkv = torch.empty((B, 3 * HD), device=cuda)
+    k1.gemv(emb, packed["ln1"][0], packed["wqkv"][0], None, 1, qkv,
+            k1.GEMV_RMS, False, cfg.rms_norm_eps)
+    cos, sin = k1.rope_rows(cfg, pos)
+    o = torch.empty((B, HD), device=cuda)
+    ka, va = kc[0].clone(), vc[0].clone()
+    before = k1.decode_step.attend_launches
+    k1.attend(qkv, cos.contiguous(), sin.contiguous(), ka, va, cur, lo, o,
+              cfg)
+    torch.cuda.synchronize()
+    assert k1.decode_step.attend_launches == before + 1
+    assert torch.equal(emb + o.bfloat16().float(), x)
+    assert torch.equal(ka, ks[0]) and torch.equal(va, vs[0])
+
+
+def _tp_ranks(step, shards, emb, cur, lo, pos, cfg, heads):
+    """``step`` on every rank's shards at once, one thread a rank, with an
+    all_reduce that sums the ranks' partials in rank order (the threads
+    share the card's stream, so the sum is queued after both partials)."""
+    import threading
+
+    tp = len(shards)
+    barrier = threading.Barrier(tp)
+    parts, out, errors = [None] * tp, [None] * tp, []
+
+    def rank_main(rank):
+        def all_reduce(t):
+            parts[rank] = t.clone()
+            barrier.wait(timeout=60)
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            barrier.wait(timeout=60)
+            return t.copy_(total)
+
+        try:
+            packed, k, v = shards[rank]
+            out[rank] = step(packed, emb, k, v, cur, lo, pos, cfg, heads,
+                             all_reduce)
+        except BaseException as e:  # re-raised by the caller
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=rank_main, args=(r,))
+               for r in range(tp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_tp_step_matches_its_plain_version(cuda, kv_bits):
+    """Two tensor-parallel ranks of the full model's width at 2 layers on
+    one card, a thread each: the kernels' step (``decode_step_tp``) against
+    ``decode_step_plain`` of the same shards (their heads, the all_reduce)
+    at the hidden's tolerance, both ranks' results equal, the launches
+    counted."""
+    cfg = GPTConfig(hidden_size=768, intermediate_size=3072,
+                    num_attention_heads=12, num_hidden_layers=2,
+                    max_position_embeddings=512)
+    B, T, tp = 8, 128, 2
+    params, packed, kc, vc, emb = _inputs(cfg, B, T, cuda)
+    heads = k1.local_heads(cfg, tp)
+    hl = heads.num_attention_heads * heads.head_dim
+    gen = torch.Generator().manual_seed(6)
+    cur = torch.randint(1, T, (B,), generator=gen).to(cuda)
+    lo = torch.zeros(B, dtype=torch.long, device=cuda)
+
+    def shards():
+        out = []
+        for rank in range(tp):
+            sl = slice(rank * hl, (rank + 1) * hl)
+            k, v = kc[..., sl].float(), vc[..., sl].float()
+            if kv_bits:
+                k, v = (kv_quant.kv8_quantize(k, heads),
+                        kv_quant.kv8_quantize(v, heads))
+            else:
+                k, v = k.bfloat16(), v.bfloat16()
+            out.append((k1.shard_packed(packed, cfg, tp, rank),
+                        k.contiguous(), v.contiguous()))
+        return out
+
+    before = dict(k1.decode_step.tp_launches)
+    got = _tp_ranks(k1.decode_step_tp, shards(), emb, cur, lo, cur, cfg,
+                    heads)
+    want = _tp_ranks(k1.decode_step_plain, shards(), emb, cur, lo, cur,
+                     cfg, heads)
+    torch.cuda.synchronize()
+    variant = "k2k3" if kv_bits else "k2"
+    assert k1.decode_step.tp_launches[variant] == before[variant] + tp
+    assert torch.equal(got[0], got[1])
+    hg = llama.rms_norm(got[0], params["norm"], cfg.rms_norm_eps)
+    hw = llama.rms_norm(want[0], params["norm"], cfg.rms_norm_eps)
+    assert torch.isfinite(hg).all()
+    torch.testing.assert_close(hg, hw, atol=HIDDEN_ATOL, rtol=0)
