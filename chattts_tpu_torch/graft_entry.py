@@ -1,6 +1,6 @@
 """Entry points of the port for a quick check (counterpart of
 ``__graft_entry__.py``): the full-width forward for a compile-and-run
-check, and the multi-rank serving dry run.
+check, and the multi-rank dry run of training and serving.
 
     python -m chattts_tpu_torch.graft_entry            # entry() on the card
     python -m chattts_tpu_torch.graft_entry --dryrun 4 # 4 ranks on this host
@@ -9,9 +9,7 @@ check, and the multi-rank serving dry run.
 The dry run spawns its ranks on this host (``parallel/comm.spawn``): NCCL
 where each rank has a GPU of its own, gloo otherwise (also on one card, and
 on the CPU with ``device="cpu"``).  Under ``torchrun`` each process is one
-rank of the same dry run (``--torchrun cpu`` keeps it on the CPU).  The
-training half of the JAX dry run (the sharded and the pipelined train
-steps) is not ported yet.
+rank of the same dry run (``--torchrun cpu`` keeps it on the CPU).
 """
 
 from __future__ import annotations
@@ -106,6 +104,65 @@ def _dryrun_requests(cfg: GPTConfig, n: int):
     return reqs
 
 
+def _train_mesh_shape(n: int) -> tuple:
+    """(dp, sp, tp) of the dry run's training step, as the JAX dry run
+    picks them: tp 2 when ``n`` is even, sp 2 when that still leaves an
+    even dp, dp the rest."""
+    tp = 2 if n % 2 == 0 else 1
+    sp = 2 if n % (2 * tp * 2) == 0 else 1
+    return n // (tp * sp), sp, tp
+
+
+def _dryrun_train(n: int, dev: torch.device) -> dict:
+    """The training half of :func:`dryrun_multichip` on this rank: one
+    sharded step on the (dp, sp, tp) mesh of :func:`_train_mesh_shape`
+    (B 2 dp, T 32), its loss finite; then, on ranks 0 and 1, one GPipe step
+    at pp=2, n_micro=2 (B 4, T 32) whose loss must match the plain step's
+    (rtol 2e-4, atol 1e-5, as the JAX dry run holds it)."""
+    from . import train
+    from .parallel import pipeline
+
+    cfg = _dryrun_cfg()
+    opt = train.make_optimizer()
+    dp, sp, tp = _train_mesh_shape(n)
+    mesh = mesh_mod.make_mesh(dp=dp, sp=sp, tp=tp)
+    whole = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=dev)
+    gpt = mesh_mod.shard_params(whole.gpt, mesh_mod.gpt_param_specs(cfg),
+                                mesh)
+    emb = mesh_mod.shard_params(whole.embed,
+                                mesh_mod.embed_param_specs(cfg), mesh)
+    state = train.TrainState(gpt, emb, opt.init((gpt, emb)), whole.step)
+    batch = mesh_mod.shard_params(
+        train.random_batch(torch.Generator().manual_seed(1), cfg, 2 * dp, 32,
+                           device=dev), mesh_mod.train_batch_specs(), mesh)
+    _, m = train.make_train_step(cfg, opt, mesh)(state, batch)
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"the sharded train step's loss is {loss}")
+    out = {"mesh": (dp, sp, tp), "loss": loss, "pp": None}
+    del whole, gpt, emb, state, batch
+
+    pp_mesh = pipeline.make_pp_mesh(2) if n >= 2 else None
+    if pp_mesh is not None and pp_mesh.coords is not None:
+        batch = train.random_batch(torch.Generator().manual_seed(1), cfg, 4,
+                                   32, device=dev)
+        plain = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                       opt, device=dev)
+        _, plain_m = train.make_train_step(cfg, opt)(plain, batch)
+        del plain
+        pstate = pipeline.init_pp_state(torch.Generator().manual_seed(0),
+                                        cfg, opt, pp_mesh, device=dev)
+        _, pp_m = pipeline.make_pp_train_step(cfg, opt, pp_mesh, 2)(
+            pstate, batch)
+        pp_loss, plain_loss = float(pp_m["loss"]), float(plain_m["loss"])
+        if not np.isclose(pp_loss, plain_loss, rtol=2e-4, atol=1e-5):
+            raise RuntimeError(f"the GPipe step's loss {pp_loss} is not the "
+                               f"plain step's {plain_loss}")
+        out["pp"] = {"loss": pp_loss, "plain": plain_loss}
+    return out
+
+
 def _dryrun_rank(rank: int, n: int, dp: int, tp: int, device: str) -> dict:
     """One rank of :func:`dryrun_multichip`."""
     from .engine.batching import Engine, EngineConfig
@@ -114,6 +171,7 @@ def _dryrun_rank(rank: int, n: int, dp: int, tp: int, device: str) -> dict:
         dev = torch.device("cuda", torch.cuda.current_device())
     else:
         dev = torch.device(device)
+    trained = _dryrun_train(n, dev)
     cfg = _dryrun_cfg()
     mesh = mesh_mod.make_mesh(dp=dp, tp=tp)
     gp = to_device(llama.init_params(torch.Generator().manual_seed(0), cfg),
@@ -151,18 +209,21 @@ def _dryrun_rank(rank: int, n: int, dp: int, tp: int, device: str) -> dict:
                            f"from the single-rank decode by {err}")
     return {"mesh": (dp, tp), "requests": len(outs),
             "ids": [o.ids for o in outs], "wav_shape": tuple(wav.shape),
-            "decode_err": err}
+            "decode_err": err, "train": trained}
 
 
 def dryrun_multichip(n_ranks: int, device: Optional[str] = None,
                      threads: Optional[int] = None) -> list:
-    """The serving half of the JAX dry run on ``n_ranks`` spawned ranks: a
-    dp x tp mesh (tp 2 when ``n_ranks`` is even, dp the rest; serving
-    keeps sp 1), the sharded Engine at the real width and 2 layers on
-    2 dp + 1 requests, seed determinism on a second engine, and the
-    dp-sharded decode stage against the single-rank decode within 1e-5.
-    ``device``: "cuda" (the default; raises without a card) or "cpu".
-    Raises if any rank fails; returns the ranks' summaries."""
+    """The JAX dry run on ``n_ranks`` spawned ranks, at the real width and
+    2 layers.  Training: one sharded step on a dp x sp x tp mesh
+    (:func:`_train_mesh_shape`), its loss finite, and the GPipe step at
+    pp=2 against the plain step's loss (:func:`_dryrun_train`).  Serving:
+    a dp x tp mesh (tp 2 when ``n_ranks`` is even, dp the rest; serving
+    keeps sp 1), the sharded Engine on 2 dp + 1 requests, seed determinism
+    on a second engine, and the dp-sharded decode stage against the
+    single-rank decode within 1e-5.  ``device``: "cuda" (the default;
+    raises without a card) or "cpu".  Raises if any rank fails; returns
+    the ranks' summaries."""
     device = resolve_device(device).type
     tp = 2 if n_ranks % 2 == 0 else 1
     dp = n_ranks // tp
@@ -173,6 +234,15 @@ def dryrun_multichip(n_ranks: int, device: Optional[str] = None,
     for r in out[1:]:
         if not all(np.array_equal(a, b) for a, b in zip(r["ids"], ids)):
             raise RuntimeError("the ranks' outputs differ")
+        if r["train"]["loss"] != out[0]["train"]["loss"]:
+            raise RuntimeError("the ranks' train losses differ")
+    tr = out[0]["train"]
+    print(f"dryrun_multichip train ok: mesh dp={tr['mesh'][0]} "
+          f"sp={tr['mesh'][1]} tp={tr['mesh'][2]}, loss={tr['loss']:.4f}")
+    if tr["pp"] is not None:
+        print(f"dryrun_multichip pp ok: GPipe pp=2 n_micro=2 loss="
+              f"{tr['pp']['loss']:.4f} matches plain step "
+              f"{tr['pp']['plain']:.4f}")
     print(f"dryrun_multichip engine ok: mesh dp={dp} tp={tp} on {backend}, "
           f"{out[0]['requests']} requests over {2 * dp} sharded slots, "
           f"seed-deterministic")
@@ -192,7 +262,9 @@ def _torchrun_rank(device: str) -> None:
     try:
         tp = 2 if n % 2 == 0 else 1
         out = _dryrun_rank(dist.get_rank(), n, n // tp, tp, device)
-        print(f"rank {dist.get_rank()} of {n}: mesh dp={n // tp} tp={tp}, "
+        print(f"rank {dist.get_rank()} of {n}: train mesh "
+              f"{out['train']['mesh']} loss {out['train']['loss']:.4f}; "
+              f"serving mesh dp={n // tp} tp={tp}, "
               f"{out['requests']} requests, decode within "
               f"{out['decode_err']:.2e} of the single-rank decode")
     finally:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -124,12 +124,22 @@ def _swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return F.silu(gu[:, :, 0]) * gu[:, :, 1]
 
 
-def _project(a: torch.Tensor, w: torch.Tensor, reduce) -> torch.Tensor:
+def _project(a: torch.Tensor, w: torch.Tensor, reduce, mesh=None
+             ) -> torch.Tensor:
     """a @ w; with ``reduce`` (a tensor-parallel rank's sum over ranks, in
-    place) the rank's f32 partial is summed across ranks and rounded once
-    to the product's dtype, as the whole product would be."""
-    if reduce is None:
+    place) or a ``mesh`` of more than one tp rank (its differentiable sum,
+    ``Mesh.reduce``) the rank's f32 partial is summed across ranks and
+    rounded once to the product's dtype, as the whole product would be.
+    Raises if the in-place ``reduce`` meets a partial that needs a
+    gradient: autograd cannot differentiate it."""
+    if mesh is not None and mesh.shape["tp"] > 1:
+        reduce = lambda t: mesh.reduce(t, "tp")  # noqa: E731
+    elif reduce is None:
         return _matmul(a, w)
+    elif torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        raise RuntimeError("an in-place reduce met a tensor that needs a "
+                           "gradient: a training layer sums over tp through "
+                           "prefill_block's mesh")
     dt = torch.promote_types(a.dtype, w.dtype)
     return reduce(a.to(torch.float32) @ w.to(torch.float32)).to(dt)
 
@@ -140,13 +150,18 @@ def _qkv(p: dict, x: torch.Tensor):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def prefill_bias(attn_mask: torch.Tensor) -> torch.Tensor:
-    """Additive bias (B, 1, T0, T0): query i sees key j iff j <= i and
-    mask[j].  Large-finite rather than -inf, so a left-pad query row with
-    no visible key stays finite instead of poisoning the cache with NaN."""
+def prefill_bias(attn_mask: torch.Tensor, start: int = 0,
+                 length: Optional[int] = None) -> torch.Tensor:
+    """Additive bias (B, 1, length, T0) of the queries at positions
+    [start, start + length) (default all T0) over the T0 keys: query i
+    sees key j iff j <= i and mask[j].  Large-finite rather than -inf, so
+    a left-pad query row with no visible key stays finite instead of
+    poisoning the cache with NaN."""
     T0 = attn_mask.shape[1]
-    causal = torch.tril(torch.ones((T0, T0), dtype=torch.bool,
-                                   device=attn_mask.device))
+    length = T0 - start if length is None else length
+    dev = attn_mask.device
+    causal = (torch.arange(T0, device=dev)[None, :]
+              <= torch.arange(start, start + length, device=dev)[:, None])
     ok = causal[None] & attn_mask[:, None, :]
     bias = torch.where(ok, 0.0, _MASK_VALUE).to(torch.float32)
     return bias[:, None]
@@ -166,19 +181,36 @@ def _attend(q, k, v, bias, head_dim: int, dtype):
 
 def prefill_block(lp: dict, x: torch.Tensor, bias: torch.Tensor,
                   cos: torch.Tensor, sin: torch.Tensor, cfg: GPTConfig,
-                  dtype=torch.bfloat16, reduce=None):
+                  dtype=torch.bfloat16, reduce=None, mesh=None):
     """One layer of the full-sequence forward -> (x, k, v).  ``reduce``:
     ``lp`` is a tensor-parallel rank's shard (its heads, its slice of I)
-    and the outputs of wo and down are summed over ranks with it."""
+    and the outputs of wo and down are summed over ranks with it (in
+    place, no gradient).
+
+    ``mesh``: a training rank's (dp, sp, tp) mesh, differentiable.  Under
+    tp > 1 ``lp`` is the rank's tp shard: each normed input is copied onto
+    tp before the column-parallel wqkv and wgu (its gradient summed over
+    tp) and the f32 partials of the row-parallel wo and down are summed
+    over tp (Megatron's pair).  Under sp > 1 ``x`` holds the rank's T/sp
+    positions, ``bias`` its rows over all T keys, and k and v are gathered
+    over sp; the returned k and v are the rank's own."""
     eps = cfg.rms_norm_eps
+    tp = mesh is not None and mesh.shape["tp"] > 1
+    sp = mesh is not None and mesh.shape["sp"] > 1
     h = rms_norm(x, lp["ln1"], eps)
+    if tp:
+        h = mesh.copy(h, "tp")
     q, k, v = _qkv(lp["attn"], h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    x = x + _project(_attend(q, k, v, bias, cfg.head_dim, dtype),
-                     lp["attn"]["wo"], reduce)
+    ka, va = ((mesh.gather_cat(k, "sp", 1), mesh.gather_cat(v, "sp", 1))
+              if sp else (k, v))
+    x = x + _project(_attend(q, ka, va, bias, cfg.head_dim, dtype),
+                     lp["attn"]["wo"], reduce, mesh)
     h = rms_norm(x, lp["ln2"], eps)
-    x = x + _project(_swiglu(lp["mlp"], h), lp["mlp"]["down"], reduce)
+    if tp:
+        h = mesh.copy(h, "tp")
+    x = x + _project(_swiglu(lp["mlp"], h), lp["mlp"]["down"], reduce, mesh)
     return x, k, v
 
 

@@ -12,6 +12,16 @@ rank has a GPU of its own, on gloo with CUDA tensors where ranks share a
 card (NCCL refuses two ranks on one GPU), and on gloo on the CPU.  Nothing
 falls back: a backend that refuses a tensor raises.
 
+Training differentiates through three of them (:func:`reduce_sum`,
+:func:`copy_to`, :func:`gather_cat`), each a ``torch.autograd.Function``
+whose backward is again an all_reduce: the sum (backward the identity), the
+copy (the identity, backward the sum) and the gather along a dimension
+(backward the sum, then this rank's slice).  Autograd runs a rank's backward
+collectives in the order of its graph, which every rank of a mesh builds
+alike; ``parallel/pipeline.py``, whose stages build different graphs,
+orders its own.  The in-place :func:`all_reduce` is for tensors that need
+no gradient.
+
 :func:`spawn` runs a function on ``n`` new processes of one group on this
 host (tests, ``graft_entry.dryrun_multichip``, ``chip_smoke.py``); a host
 launched with ``torchrun`` calls :func:`initialize_distributed` with no
@@ -100,6 +110,70 @@ def gather_padded(part: torch.Tensor, index: int, n: int, group
                       device=part.device)
     out[index] = part
     return all_reduce(out, group)
+
+
+class _ReduceSum(torch.autograd.Function):
+    """Forward the sum over ``group``; backward the identity (each rank's
+    partial takes the gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Forward the identity (a tensor every rank of ``group`` holds whole
+    enters rank-local work); backward the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class _GatherCat(torch.autograd.Function):
+    """Forward every rank's part concatenated along ``dim`` in index order
+    (:func:`gather_padded`); backward the sum of the ranks' gradients of
+    the whole, of which this rank takes its part's slice."""
+
+    @staticmethod
+    def forward(ctx, t, dim, index, n, group):
+        ctx.dim, ctx.index, ctx.size, ctx.group = dim, index, t.shape[dim], \
+            group
+        parts = gather_padded(t, index, n, group)
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.group)
+        return (g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size),
+                None, None, None, None)
+
+
+def reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor, the sum of ``t`` over ``group``; differentiable (the
+    gradient passes to every rank's ``t`` unchanged)."""
+    return _ReduceSum.apply(t, group)
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` unchanged; its gradient is summed over ``group``."""
+    return _CopyTo.apply(t, group)
+
+
+def gather_cat(t: torch.Tensor, dim: int, index: int, n: int, group
+               ) -> torch.Tensor:
+    """The ``n`` ranks' parts of ``group`` concatenated along ``dim``,
+    this rank's at ``index``; differentiable."""
+    return _GatherCat.apply(t, dim, index, n, group)
 
 
 def free_port() -> int:

@@ -4,12 +4,13 @@
 A mesh lays the ranks of the process group out as (dp, sp, tp):
 
 * ``dp`` (data parallel): the serving engine's slots split across ranks,
-  each running its own slots' decode steps;
-* ``sp`` (sequence parallel): training activations' time axis (serving
-  meshes keep ``sp = 1``);
+  each running its own slots' decode steps; a training batch's rows;
+* ``sp`` (sequence parallel): a training batch's time axis: a rank holds
+  T/sp query positions and gathers every rank's keys and values in each
+  layer (``train.make_train_step(mesh=)``; serving meshes keep ``sp = 1``);
 * ``tp`` (tensor parallel): attention heads and MLP columns split across
   ranks, whose partial sums meet in an all_reduce after ``wo`` and after
-  ``down`` in every layer.
+  ``down`` in every layer; in training also the heads' vocab columns.
 
 The layouts are trees of placements that mirror the JAX package's
 ``PartitionSpec`` trees leaf for leaf: a leaf is one placement per mesh
@@ -97,17 +98,46 @@ class Mesh:
             return t
         return comm.all_reduce(t, self.groups[axis])
 
+    def _alone(self, axis: str) -> bool:
+        """True without a process group (a mesh of one rank along ``axis``,
+        whose collectives are the identity); raises for more ranks."""
+        if self.groups is not None:
+            return False
+        if self.shape[axis] != 1:
+            raise RuntimeError(f"a mesh of {self.shape[axis]} ranks along "
+                               f"{axis} without a process group has no "
+                               f"collectives")
+        return True
+
+    def reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """A new tensor, ``t`` summed over ``axis``; differentiable
+        (:func:`comm.reduce_sum`)."""
+        if self._alone(axis):
+            return t
+        return comm.reduce_sum(t, self.groups[axis])
+
+    def copy(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t``, whose gradient is summed over ``axis``
+        (:func:`comm.copy_to`)."""
+        if self._alone(axis):
+            return t
+        return comm.copy_to(t, self.groups[axis])
+
+    def gather_cat(self, part: torch.Tensor, axis: str, dim: int
+                   ) -> torch.Tensor:
+        """Every rank's ``part`` along ``axis`` concatenated along ``dim``
+        in axis order; differentiable (:func:`comm.gather_cat`)."""
+        if self._alone(axis):
+            return part
+        return comm.gather_cat(part, dim, self.coords[axis],
+                               self.shape[axis], self.groups[axis])
+
     def gather(self, part: torch.Tensor, axis: str) -> torch.Tensor:
         """(n, *part.shape) along ``axis``: every rank's ``part`` in axis
         order (:func:`comm.gather_padded`)."""
-        n = self.shape[axis]
-        if self.groups is None:
-            if n != 1:
-                raise RuntimeError(f"a mesh of {n} ranks along {axis} "
-                                   f"without a process group has no "
-                                   f"collectives")
+        if self._alone(axis):
             return part[None].clone()
-        return comm.gather_padded(part, self.coords[axis], n,
+        return comm.gather_padded(part, self.coords[axis], self.shape[axis],
                                   self.groups[axis])
 
 
@@ -167,6 +197,16 @@ def embed_param_specs(cfg: GPTConfig) -> dict:
         "head_text": spec(None, "tp"),
         "head_code": spec(None, None, "tp"),
     }
+
+
+def train_batch_specs():
+    """Placements of a ``train.TrainBatch``: rows over dp, the time axis
+    over sp; a TrainBatch of placements, so :func:`shard_params` slices a
+    batch with it."""
+    from ..train import TrainBatch
+
+    return TrainBatch(ids=spec("dp", "sp", None), attn_mask=spec("dp", "sp"),
+                      text_mask=spec("dp", "sp"))
 
 
 def state_specs(cfg: GPTConfig) -> dict:

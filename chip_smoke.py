@@ -142,11 +142,25 @@
    dp-sharded decode stage against the single-rank decode.  Slot-steps/s
    beside the unsharded engine's, the tp2 gemvs' us beside matmul and
    their bound, one rank's tp step timed.
+11. Sharded and pipelined training (``phase_train_mesh``), after
+   ``phase_train``: the default config at B 8, T 1024, lr 3e-3 after one
+   warmup count, 4 steps of each layout from the same seeded state and
+   batch, each held to the unsharded ``make_train_step`` run on the card
+   (the loss gap a step taken, the largest mean gap over a leaf, the share
+   of elements more than the peak learning rate apart, with the CPU
+   tests' limits): ``make_train_step(mesh=)`` on a one-rank NCCL mesh
+   (bit-equality printed); dp=2, sp=2, tp=2 and GPipe at pp=2 (4
+   microbatches), each as two processes on the card over gloo; dp=2 x
+   sp=2 x tp=2 as 8 processes at 2 layers.  Printed: each layout's step
+   ms (median of steps 2-4), tokens/s beside the unsharded step's, each
+   rank's peak memory, the phase's seconds.  Processes time-sharing one
+   card measure overhead, not scaling.  No CUDA kernel of the port runs.
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``;
-``--train`` runs only ``phase_train`` (no build); ``--mesh`` builds, loads
-the chat and runs only ``phase_mesh`` (its reference run made there).
+``--train`` runs only ``phase_train`` (no build); ``--train-mesh`` only
+``phase_train_mesh`` (no build); ``--mesh`` builds, loads the chat and
+runs only ``phase_mesh`` (its reference run made there).
 
 TF32 is switched off for matmuls and cuDNN convolutions (the multi-segment
 phase turns cuDNN's back on for one encode, then restores it), so float32
@@ -4077,20 +4091,20 @@ def _train_planted(state, batch, cfg, opt, run):
                             reset_moments=run == "moments not carried")
 
 
-def _train_gaps(l_dev, l_cpu, s_dev, s_cpu, lr):
-    """(loss, leaf mean, share, max-abs) readings of the card's run against
-    the CPU's (TRAIN_LOSS_RTOL etc.)."""
-    from chattts_tpu_torch.weights import tree_leaves
-
+def _train_gaps(losses, ref_losses, got, want, lr):
+    """(loss gap / reference loss / steps taken, largest leaf mean gap,
+    elements more than ``lr`` apart, elements, largest gap) of a run's
+    losses and leaves (lists of tensors) against a reference's, held with
+    TRAIN_LOSS_RTOL, TRAIN_PARAM_MEAN and TRAIN_PARAM_SHARE (the share is
+    the third over the fourth, summed over ranks where a run has several)."""
     loss = max(abs(a - b) / ((1 + i) * abs(b))
-               for i, (a, b) in enumerate(zip(l_dev, l_cpu)))
+               for i, (a, b) in enumerate(zip(losses, ref_losses)))
     mean = worst = over = n = 0
-    for a, b in zip(tree_leaves((s_dev.gpt, s_dev.embed)),
-                    tree_leaves((s_cpu.gpt, s_cpu.embed))):
+    for a, b in zip(got, want):
         d = (a.float() - b.to(a.device).float()).abs()
         mean, worst = max(mean, float(d.mean())), max(worst, float(d.max()))
         over, n = over + int((d > lr).sum()), n + d.numel()
-    return loss, mean, over / n, worst
+    return loss, mean, over, n, worst
 
 
 def _train_card_against_cpu(dev, cfg, opt):
@@ -4130,7 +4144,10 @@ def _train_card_against_cpu(dev, cfg, opt):
           "gap printed, not checked)")
     for run in ("sound",) + TRAIN_FAULTS + (TRAIN_CONTROL,):
         s_dev, l_dev = _train_planted(s0, b_dev, cfg, opt, run)
-        *got, worst = _train_gaps(l_dev, l_cpu, s_dev, s_cpu, lr)
+        loss, mean, over, n, worst = _train_gaps(
+            l_dev, l_cpu, train.tree_leaves((s_dev.gpt, s_dev.embed)),
+            train.tree_leaves((s_cpu.gpt, s_cpu.embed)), lr)
+        got = (loss, mean, over / n)
         passed = all(x <= lim for x, lim in zip(got, limits))
         print(f"  {run:28s} losses {[round(x, 5) for x in l_dev]}, "
               f"readings {', '.join(f'{x:.3e}' for x in got)}, max-abs "
@@ -4263,6 +4280,251 @@ def phase_train(dev):
     _train_card_against_cpu(dev, cfg, opt)
 
 
+# sharded and pipelined training on the one card (phase_train_mesh): the
+# default config, phase_train's batch (TRAIN_B x TRAIN_T) and optimizer,
+# TMESH_STEPS steps of each layout from the same seeded state, each held to
+# the unsharded make_train_step's run on the card with the limits of
+# tests/test_torch_train_mesh.py (those of phase_train's card-against-CPU
+# check): the loss gap over the unsharded loss a step taken, the largest
+# mean gap over a leaf, the share of elements more than the peak learning
+# rate apart.  Step 1 has learning rate 0 (the schedule's count 0).
+TMESH_STEPS = 4
+# (name, make_mesh arguments or None for GPipe): each as two processes on
+# the one card over gloo
+TMESH_LAYOUTS = (("dp=2", dict(dp=2)), ("sp=2", dict(dp=1, sp=2)),
+                 ("tp=2", dict(dp=1, tp=2)), ("pp=2", None))
+TMESH_MICRO = 4          # GPipe's microbatches at pp=2
+# dp=2 x sp=2 x tp=2 as 8 processes on the one card, at 2 layers to fit
+# the phase's time
+TMESH_8_LAYERS = 2
+
+
+def _tmesh_steps(step, state, batch):
+    """TMESH_STEPS steps: (state, losses, host ms a step, synchronized)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(TMESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms
+
+
+def _tmesh_setup(layers):
+    """The config, optimizer, seeded whole state and batch that every
+    layout and the unsharded run start from (on this process's card)."""
+    import dataclasses
+
+    import torch
+    from chattts_tpu_torch import train
+    from chattts_tpu_torch.config import GPTConfig
+
+    cfg = dataclasses.replace(GPTConfig(), num_hidden_layers=layers)
+    opt = train.make_optimizer(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    dev = torch.device("cuda")
+    state = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=dev)
+    batch = train.random_batch(torch.Generator().manual_seed(1), cfg,
+                               TRAIN_B, TRAIN_T, device=dev)
+    lr = max(float(opt.schedule(torch.tensor(i, dtype=torch.int32)))
+             for i in range(TMESH_STEPS))
+    return cfg, opt, state, batch, lr
+
+
+def _train_mesh_rank(rank, n, ref_path, layers, layouts):
+    """One of ``n`` processes on the card (gloo, CUDA tensors): each layout
+    of ``layouts`` in turn from the seeded state, TMESH_STEPS steps, its
+    shards held to the unsharded run's (``ref_path``).  Returns per layout
+    the losses, step ms, the peak memory this rank allocated and its
+    readings."""
+    import torch
+    from chattts_tpu_torch import train
+    from chattts_tpu_torch.parallel import mesh as mesh_mod
+    from chattts_tpu_torch.parallel import pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, opt, whole, batch, lr = _tmesh_setup(layers)
+    whole = whole._replace(opt_state=None)  # each layout makes its own
+    # on the host, so a rank's peak is its layout's
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+    out = []
+    for name, shape in layouts:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if shape is None:
+            pm = pipeline.make_pp_mesh(n)
+            gpt = pipeline.pp_params(whole.gpt, pm)
+            state = train.TrainState(gpt, whole.embed,
+                                     opt.init((gpt, whole.embed)), whole.step)
+            step = pipeline.make_pp_train_step(cfg, opt, pm, TMESH_MICRO)
+            b = batch
+            want = (pipeline.pp_params(ref["gpt"], pm), ref["embed"])
+        else:
+            mesh = mesh_mod.make_mesh(**shape)
+            specs = (mesh_mod.gpt_param_specs(cfg),
+                     mesh_mod.embed_param_specs(cfg))
+            gpt, emb = mesh_mod.shard_params((whole.gpt, whole.embed), specs,
+                                             mesh)
+            state = train.TrainState(gpt, emb, opt.init((gpt, emb)),
+                                     whole.step)
+            step = train.make_train_step(cfg, opt, mesh)
+            b = mesh_mod.shard_params(batch, mesh_mod.train_batch_specs(),
+                                      mesh)
+            want = mesh_mod.shard_params((ref["gpt"], ref["embed"]), specs,
+                                         mesh)
+        state, losses, ms = _tmesh_steps(step, state, b)
+        readings = _train_gaps(
+            losses, ref["losses"], train.tree_leaves((state.gpt, state.embed)),
+            train.tree_leaves(want), lr)
+        out.append({"name": name, "losses": losses, "ms": ms,
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "readings": readings})
+        del state, step, want
+    return out
+
+
+def _tmesh_report(name, ranks, ref, card, tokens):
+    """Print a layout's line from its ranks' results and check its
+    readings; returns its summary."""
+    import statistics
+
+    r0 = ranks[0]
+    check(all(r["losses"] == r0["losses"] for r in ranks),
+          f"train mesh {name}: the ranks' losses differ")
+    loss = max(r["readings"][0] for r in ranks)
+    mean = max(r["readings"][1] for r in ranks)
+    share = sum(r["readings"][2] for r in ranks) / sum(
+        r["readings"][3] for r in ranks)
+    worst = max(r["readings"][4] for r in ranks)
+    limits = (TRAIN_LOSS_RTOL, TRAIN_PARAM_MEAN, TRAIN_PARAM_SHARE)
+    passed = all(x <= lim for x, lim in zip((loss, mean, share), limits))
+    med = statistics.median(max(r["ms"][i] for r in ranks)
+                            for i in range(1, TMESH_STEPS))
+    ref_med = statistics.median(ref["ms"][1:])
+    peak = [round(r["peak"] / 2**30, 2) for r in ranks]
+    print(f"train mesh {name} ({len(ranks)} ranks on one card): losses "
+          f"{[round(x, 5) for x in r0['losses']]} (unsharded "
+          f"{[round(x, 5) for x in ref['losses']]}); step ms (slowest rank) "
+          f"{[round(max(r['ms'][i] for r in ranks), 1) for i in range(TMESH_STEPS)]}"
+          f", median over steps 2-{TMESH_STEPS} {med:.1f} ms, "
+          f"{tokens / med * 1e3:.1f} tokens/s against the unsharded "
+          f"{tokens / ref_med * 1e3:.1f} ({ref_med:.1f} ms); peak allocated "
+          f"a rank {peak} GiB; readings {loss:.3e}, {mean:.3e}, {share:.3e} "
+          f"against {limits} (max-abs {worst:.3e}): "
+          f"{'passes' if passed else 'FAILS'}; processes time-sharing one "
+          f"card: overhead, not scaling; {card}")
+    check(passed, f"train mesh {name}: the sharded steps left the "
+                  f"unsharded run's")
+    return {"name": name, "ranks": len(ranks), "ms": med,
+            "tokens_per_s": tokens / med * 1e3, "peak_gib": peak,
+            "readings": [loss, mean, share]}
+
+
+def _tmesh_reference(layers, path):
+    """The unsharded make_train_step's TMESH_STEPS steps at ``layers``
+    layers, its final trees saved to ``path``: {"path", "losses", "ms"}."""
+    import torch
+    from chattts_tpu_torch import train
+
+    cfg, opt, state, batch, _ = _tmesh_setup(layers)
+    final, losses, ms = _tmesh_steps(train.make_train_step(cfg, opt), state,
+                                     batch)
+    torch.save({"losses": losses, "gpt": final.gpt, "embed": final.embed},
+               path)
+    print(f"train mesh: unsharded at {layers} layers, losses "
+          f"{[round(x, 5) for x in losses]}, step ms "
+          f"{[round(x, 1) for x in ms]}")
+    return {"path": path, "losses": losses, "ms": ms}
+
+
+def _tmesh_nccl(layers, ref, card, tokens):
+    """The sharded step's code on a one-rank NCCL mesh against the
+    unsharded run ``ref``; bit-equality printed."""
+    import torch
+    import torch.distributed as dist
+    from chattts_tpu_torch import train
+    from chattts_tpu_torch.parallel import comm
+    from chattts_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg, opt, state, batch, lr = _tmesh_setup(layers)
+    torch.cuda.reset_peak_memory_stats()
+    comm.initialize_distributed(f"127.0.0.1:{comm.free_port()}", 1, 0,
+                                backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", "the world-1 group is not NCCL")
+        step = train.make_train_step(cfg, opt, mesh_mod.make_mesh(dp=1))
+        state, losses, ms = _tmesh_steps(step, state, batch)
+    finally:
+        dist.destroy_process_group()
+    want = torch.load(ref["path"], map_location="cuda", weights_only=True)
+    got = train.tree_leaves((state.gpt, state.embed))
+    want = train.tree_leaves((want["gpt"], want["embed"]))
+    same = losses == ref["losses"] and all(torch.equal(a, b)
+                                           for a, b in zip(got, want))
+    rank = {"losses": losses, "ms": ms,
+            "peak": torch.cuda.max_memory_allocated(),
+            "readings": _train_gaps(losses, ref["losses"], got, want, lr)}
+    out = _tmesh_report(f"nccl dp=1 at {layers} layers", [rank], ref, card,
+                        tokens)
+    print(f"train mesh nccl dp=1: losses and every leaf "
+          f"{'bit-equal to' if same else 'NOT bit-equal to'} the unsharded "
+          f"step's")
+    return out
+
+
+def phase_train_mesh(dev, card):
+    """Sharded and pipelined training on the one card, each layout held to
+    the unsharded make_train_step's run from the same seeded state and
+    batch (the default config at TRAIN_B x TRAIN_T, TMESH_STEPS steps, lr
+    TRAIN_LR after TRAIN_WARMUP counts): a one-rank NCCL mesh through the
+    sharded step's code; dp=2, sp=2, tp=2 and GPipe at pp=2 (TMESH_MICRO
+    microbatches), each as two processes on the card over gloo; dp=2 x
+    sp=2 x tp=2 as 8 processes at TMESH_8_LAYERS layers (against an
+    unsharded run at as many).  Printed per layout: losses, step ms (the
+    median over steps 2-4 of the slowest rank's synchronized host ms),
+    tokens/s beside the unsharded step's, the peak memory each rank
+    allocated, the readings against their limits; the phase's seconds."""
+    import tempfile
+
+    import torch
+    from chattts_tpu_torch.config import GPTConfig
+    from chattts_tpu_torch.parallel import comm
+
+    t_phase = time.perf_counter()
+    tokens = TRAIN_B * TRAIN_T
+    full = GPTConfig().num_hidden_layers
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {n: _tmesh_reference(n, f"{tmp}/ref{n}.pt")
+                for n in (full, TMESH_8_LAYERS)}
+        torch.cuda.empty_cache()
+        summary = [_tmesh_nccl(full, refs[full], card, tokens)]
+        torch.cuda.empty_cache()
+        for n, layers, layouts in (
+                (2, full, TMESH_LAYOUTS),
+                (8, TMESH_8_LAYERS, (("dp=2 x sp=2 x tp=2",
+                                      dict(dp=2, sp=2, tp=2)),))):
+            t0 = time.perf_counter()
+            ranks = comm.spawn(_train_mesh_rank, n,
+                               (refs[layers]["path"], layers, layouts),
+                               backend="gloo", timeout_s=600)
+            cut = (f" (cut from {full} to fit the phase's time)"
+                   if layers != full else "")
+            print(f"train mesh: {n} gloo ranks on the card at {layers} "
+                  f"layers{cut} in {time.perf_counter() - t0:.1f} s")
+            for i, (name, _) in enumerate(layouts):
+                summary.append(_tmesh_report(
+                    f"{name} at {layers} layers", [r[i] for r in ranks],
+                    refs[layers], card, tokens))
+    print("train mesh summary " + json.dumps(summary))
+    print(f"train mesh: phase in {time.perf_counter() - t_phase:.1f} s")
+
+
 def sweep_chunk(dev, chunks=(32, 64, 128), blocks=(1024, 2112, 4096)):
     """``python3 chip_smoke.py --sweep-chunk``: the attention chunk C at 32,
     64 and 128 keys, each with the grid aimed at ``blocks`` blocks
@@ -4371,6 +4633,11 @@ def main():
         print(f"chip_smoke --train: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
+    if sys.argv[1:] == ["--train-mesh"]:
+        phase_train_mesh(dev, card)
+        print(f"chip_smoke --train-mesh: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     if sys.argv[1:] == ["--gemv"]:
         phase_build()
         phase_gemv(dev)
@@ -4459,6 +4726,8 @@ def main():
     torch.cuda.empty_cache()
     phase_train(dev)
     lap("train")
+    phase_train_mesh(dev, card)
+    lap("train mesh")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -9,8 +9,12 @@ against ``__graft_entry__.py`` (CPU).
   two frameworks round bf16 at other places), and the code heads, weights
   of 1/sqrt(D) over D hidden values of O(1), keep an error of that size
   (measured 1.7e-2).
-* ``dryrun_multichip(4)`` on a gloo group of 4 CPU processes: dp=2 x tp=2,
-  the real width at 2 layers.
+* ``dryrun_multichip(4)`` on a gloo group of 4 CPU processes, the real
+  width at 2 layers: the training half (one sharded step on dp=2 x tp=2,
+  the mesh the JAX dry run picks for 4 devices, its loss finite and equal
+  on every rank; the GPipe step at pp=2 on ranks 0 and 1, its loss within
+  the JAX dry run's rtol 2e-4 of the plain step's) and the serving half
+  (dp=2 x tp=2).
 """
 
 import dataclasses
@@ -55,3 +59,11 @@ def test_dryrun_multichip_on_four_cpu_ranks():
     assert all(o["requests"] == 5 and o["wav_shape"][0] == 4 for o in out)
     assert all(o["decode_err"] <= 1e-5 for o in out)
     assert all(ids.shape == (8, 4) for ids in out[0]["ids"])
+    train = [o["train"] for o in out]
+    assert all(t["mesh"] == (2, 1, 2) for t in train)
+    assert np.isfinite(train[0]["loss"])
+    assert all(t["loss"] == train[0]["loss"] for t in train)
+    assert train[2]["pp"] is None and train[3]["pp"] is None
+    for t in train[:2]:
+        assert np.isclose(t["pp"]["loss"], t["pp"]["plain"], rtol=2e-4,
+                          atol=1e-5), t["pp"]

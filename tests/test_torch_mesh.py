@@ -2,11 +2,13 @@
 (CPU, no process group).
 
 * ``make_mesh`` validates as the JAX one does.
-* The spec trees mirror the PartitionSpec trees leaf for leaf.
+* The spec trees mirror the PartitionSpec trees leaf for leaf (the
+  training batch's too).
 * On the 8 virtual CPU devices of tests/conftest.py, at dp=2 x sp=2 x tp=2
   and at dp=4 x tp=2, ``shard_params(..., coords=c)`` equals, bit for bit,
   the ``addressable_shards`` data of the JAX ``shard_params`` for the device
-  at coordinate c: every gpt and embed leaf and every decode-state leaf.
+  at coordinate c: every gpt and embed leaf, every decode-state leaf and
+  every leaf of a training batch.
 * ``shard_packed`` of the packed weights equals the packing of the sharded
   tree.
 * The plain tp step (``decode_step_tp`` on CPU tensors: ``decode_step_plain``
@@ -35,6 +37,7 @@ from jax.sharding import PartitionSpec
 from chattts_tpu.models import embed as je
 from chattts_tpu.models import llama as jl
 from chattts_tpu.parallel import mesh as jmesh
+from chattts_tpu.train import TrainBatch as JTrainBatch
 from chattts_tpu_torch.ops import decode_step as ds
 from chattts_tpu_torch.ops import kv_quant
 from chattts_tpu_torch.parallel import mesh as tmesh
@@ -87,6 +90,9 @@ def test_spec_trees_mirror_the_jax_specs(tiny_config):
                       tmesh.embed_param_specs(pcfg)) == 4
     assert _same_tree(jmesh.state_specs(cfg), tmesh.state_specs(pcfg)) \
         == 2 * cfg.num_hidden_layers + 10
+    jbatch, tbatch = jmesh.train_batch_specs(), tmesh.train_batch_specs()
+    assert jbatch._fields == tbatch._fields  # two TrainBatch classes
+    assert sum(_same_tree(a, b) for a, b in zip(jbatch, tbatch)) == 3
     assert tmesh.spec("dp", None, "tp", None) == (
         tmesh.Shard(0), tmesh.Replicate(), tmesh.Shard(2))
 
@@ -126,10 +132,14 @@ def test_shard_params_matches_addressable_shards(tiny_config, dp, sp, tp):
     gp = jl.init_params(jax.random.PRNGKey(0), cfg)
     ep = je.init_params(jax.random.PRNGKey(1), cfg)
     state = _state_tree(cfg, np.random.default_rng(2))
+    rng = np.random.default_rng(3)
+    batch = JTrainBatch(rng.integers(0, 300, (8, 16, cfg.num_vq), np.int32),
+                        rng.random((8, 16)) < 0.8, rng.random((8, 16)) < 0.5)
     trees = [(gp, jmesh.gpt_param_specs(cfg), tmesh.gpt_param_specs(pcfg)),
              (ep, jmesh.embed_param_specs(cfg),
               tmesh.embed_param_specs(pcfg)),
-             (state, jmesh.state_specs(cfg), tmesh.state_specs(pcfg))]
+             (state, jmesh.state_specs(cfg), tmesh.state_specs(pcfg)),
+             (batch, jmesh.train_batch_specs(), tmesh.train_batch_specs())]
     checked = 0
     for tree, jspecs, tspecs in trees:
         jsharded = _leaves(jmesh.shard_params(
@@ -147,7 +157,7 @@ def test_shard_params_matches_addressable_shards(tiny_config, dp, sp, tp):
                     to_np(t), np.asarray(want, np.float32))
                 checked += 1
     assert checked == 8 * (6 * cfg.num_hidden_layers + 1 + 4
-                           + 2 * cfg.num_hidden_layers + 10)
+                           + 2 * cfg.num_hidden_layers + 10 + 3)
 
 
 def test_shard_packed_is_the_packing_of_the_shards(tiny_config):
