@@ -17,7 +17,6 @@ step is the kernel of ``ops/decode_step.py`` instead.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -66,11 +65,28 @@ def rope_tables(cfg: GPTConfig) -> tuple[np.ndarray, np.ndarray]:
     return np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
 
 
-@lru_cache(maxsize=8)
+_ROPE_KEPT: dict = {}
+
+
+def _tracing() -> bool:
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
 def rope_tables_torch(cfg: GPTConfig, device: torch.device):
-    """:func:`rope_tables` as f32 tensors on ``device`` (built once)."""
+    """:func:`rope_tables` as f32 tensors on ``device``, built once per
+    (config, device) and kept.  Under a trace (``torch.compile``,
+    ``torch.export``) they are built inside the trace, where they become
+    the graph's constants, and not kept: only real tensors are, so a trace
+    never leaves a traced tensor for later eager calls."""
+    key = (cfg, torch.device(device))
+    kept = None if _tracing() else _ROPE_KEPT.get(key)
+    if kept is not None:
+        return kept
     cos, sin = rope_tables(cfg)
-    return (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+    out = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+    if not _tracing() and all(type(t) is torch.Tensor for t in out):
+        _ROPE_KEPT[key] = out
+    return out
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:

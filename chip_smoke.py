@@ -155,12 +155,24 @@
    ms (median of steps 2-4), tokens/s beside the unsharded step's, each
    rank's peak memory, the phase's seconds.  Processes time-sharing one
    card measure overhead, not scaling.  No CUDA kernel of the port runs.
+12. The last entry points, after ``phase_load``: ``phase_export``, the
+   graph exporter at full width with the JAX exporter's defaults (B 1,
+   prompt 64, 512 new tokens) on the card, each artifact's size and export
+   seconds, each loaded graph run with the chat's parameter trees against
+   the eager port function on seeded inputs, the loaded decode step at
+   two rows other than the traced one writing that row in the returned
+   cache and the caller's (no CUDA kernel of the port runs: the graphs
+   hold the plain step on the bf16 cache); ``phase_player``, the stream
+   player's ``main`` in process (``--source random``, the Generator on
+   the int8 cache: K3) as a main path, its launches counted and folded
+   into the kernels line.  The player over HTTP runs in ``phase_serving``.
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``;
 ``--train`` runs only ``phase_train`` (no build); ``--train-mesh`` only
 ``phase_train_mesh`` (no build); ``--mesh`` builds, loads the chat and
-runs only ``phase_mesh`` (its reference run made there).
+runs only ``phase_mesh`` (its reference run made there); ``--export``
+loads the chat and runs only ``phase_export`` (no build).
 
 TF32 is switched off for matmuls and cuDNN convolutions (the multi-segment
 phase turns cuDNN's back on for one encode, then restores it), so float32
@@ -866,29 +878,76 @@ def _layerwise_case(variant, cfg, packed, emb, base_k, base_v, cur, lo, pos,
     after the layer within LAYER_ATOL, or within HIDDEN_ATOL for a row whose
     appended row did land on a tie.  Ties are counted: at most 1 value in
     10^4 (in rows whose scale bytes agree) and 1 scale byte in 10^3.
-    Returns the sentence for the case's line."""
+
+    One tie sits before the append: the qkv gemv's bf16 input, the rms
+    norm, which the kernel sums in another order, so an element on a bf16
+    rounding half may round the other way and move that row's whole k and
+    v by a weight times one bf16 step: a burst of flipped values, not a
+    value's own tie (a one-row call showed six in one layer this way).
+    The kernel's own input is read through the one-gemv entry with the
+    identity as the weight (its products are exact): where it differs from
+    the plain version's, by one bf16 step in an element, the row's
+    reference append is recomputed from the kernel's input, and its
+    residual held as a tied row's.  Those input elements are counted too,
+    at most 1 in 10^4.  Returns the sentence for the case's line."""
     import dataclasses
 
     import torch
-    from chattts_tpu_torch.ops.decode_step import (cache_values, decode_step,
-                                                   decode_step_plain)
-    from chattts_tpu_torch.ops.kv_quant import KV_PAD
+    from chattts_tpu_torch.ops.decode_step import (GEMV_RMS, _append_rows,
+                                                   _bf, _mm, _rms, _rope,
+                                                   cache_values, decode_step,
+                                                   decode_step_plain,
+                                                   kv_bits_of, rope_rows)
+    from chattts_tpu_torch.ops.kv_quant import KV_PAD, kv_quantizer
 
     one = dataclasses.replace(cfg, num_hidden_layers=1)
-    B = emb.shape[0]
+    B, D = emb.shape
+    H = cfg.num_attention_heads
+    HD = H * cfg.head_dim
     rows = torch.arange(B, device=emb.device)
     cur_rows = _cur_rows(cur, B, emb.device)
+    quantize = kv_quantizer(kv_bits_of(base_k, cfg), cfg)
+    cos, sin = rope_rows(cfg, pos)
+    eye = torch.eye(D, dtype=torch.bfloat16, device=emb.device)
     x = emb.float()
     worst, ties, values, scale_ties, scales = 0.0, 0, 0, 0, 0
+    input_ties, inputs = 0, 0
     for li in range(cfg.num_hidden_layers):
         sub = {name: t[li:li + 1] for name, t in packed.items()}
         caches = [c[li:li + 1].clone() for c in (base_k, base_v, base_k,
                                                  base_v)]
         xk = decode_step(sub, x, caches[0], caches[1], cur, lo, pos, one)
         xp = decode_step_plain(sub, x, caches[2], caches[3], cur, lo, pos, one)
-        tied = torch.zeros(B, dtype=torch.bool, device=emb.device)
-        for got, ref in ((caches[0], caches[2]), (caches[1], caches[3])):
-            g, r = got[0, rows, cur_rows], ref[0, rows, cur_rows]
+        ln1, eps = packed["ln1"][li], cfg.rms_norm_eps
+        h_k = decode_step.gemv(x, ln1, eye, None, 1,
+                               torch.empty((B, D), device=emb.device),
+                               GEMV_RMS, False, eps)
+        h_p = _bf(_rms(x, ln1, eps))
+        moved = h_k != h_p
+
+        def bits(h):
+            return h[moved].to(torch.bfloat16).view(torch.int16).to(
+                torch.int32)
+
+        check(bool(((bits(h_k) - bits(h_p)).abs() == 1).all()),
+              f"layer {li}: the kernel's qkv input differs from the plain "
+              f"version's by more than a bf16 step ({where})")
+        input_ties += int(moved.sum())
+        inputs += moved.numel()
+        moved = moved.any(dim=1) & _append_rows(cur_rows, lo,
+                                                base_k.shape[2])
+        refs = [caches[2][0, rows, cur_rows], caches[3][0, rows, cur_rows]]
+        if bool(moved.any()):
+            scale = packed.get("sqkv")
+            qkv = _mm(h_k, packed["wqkv"][li],
+                      None if scale is None else scale[li])
+            for i, part in enumerate((_rope(qkv[:, HD:2 * HD], cos, sin, H),
+                                      qkv[:, 2 * HD:])):
+                refs[i] = torch.where(moved[:, None], quantize(part, one),
+                                      refs[i])
+        tied = moved.clone()
+        for got, r in zip((caches[0], caches[1]), refs):
+            g = got[0, rows, cur_rows]
             QW = g.shape[-1] - KV_PAD
             off = g[:, QW:] != r[:, QW:]
             scale_ties += int(off.sum())
@@ -907,12 +966,15 @@ def _layerwise_case(variant, cfg, packed, emb, base_k, base_v, cur, lo, pos,
                     else 0.0)
         x = xp
     check(ties <= max(2, values // 10_000)
-          and scale_ties <= max(2, scales // 1000),
-          f"{ties} of {values} appended values and {scale_ties} of {scales} "
-          f"scale bytes differ on equal inputs ({where})")
+          and scale_ties <= max(2, scales // 1000)
+          and input_ties <= max(2, inputs // 10_000),
+          f"{ties} of {values} appended values, {scale_ties} of {scales} "
+          f"scale bytes and {input_ties} of {inputs} qkv input elements "
+          f"differ on equal inputs ({where})")
     return (f"layer by layer on equal inputs: residual max-abs {worst:.3e} "
-            f"(limit {LAYER_ATOL}), {ties} of {values} appended values and "
-            f"{scale_ties} of {scales} scale bytes on a tie")
+            f"(limit {LAYER_ATOL}), {ties} of {values} appended values, "
+            f"{scale_ties} of {scales} scale bytes and {input_ties} of "
+            f"{inputs} qkv input elements on a tie")
 
 
 def _kernel_case(variant, cfg, packs, norm, B, T, gen, dev, cur=None):
@@ -2361,6 +2423,196 @@ def phase_load(chat, kernels, launches):
               f"refine and code passes)")
 
 
+# the exported graphs against the port's eager functions on the same
+# inputs: they run the same ATen ops, so 0 is expected; the limits are the
+# CPU tests' (tests/test_torch_exporter.py): a bf16 activation's few ulps,
+# an f32 product's order of sums, a waveform's 1e-3 of its peak
+EXPORT_ATOL = {"hidden": 0.05, "cache": 0.05, "logits": 1e-5}
+EXPORT_WAV_OF_PEAK = 1e-3
+EXPORT_SHAPE = (1, 64, 512)  # the JAX exporter's defaults: B, prompt, new
+EXPORT_CURS = (64 + 37, 64 + 400)  # rows other than the traced one (64)
+
+
+def phase_export(chat):
+    """``exporter.export_all`` at full width with the JAX exporter's
+    defaults (B 1, prompt 64, 512 new tokens, a 576-row cache) on the card
+    into a temporary directory: each artifact's size (held well under the
+    bytes of the parameters it takes: the graphs hold no weights) and
+    export seconds.  Each graph is loaded with ``torch.export.load`` and
+    run with ``chat``'s own parameter trees on seeded inputs against the
+    eager port function on the same inputs (``EXPORT_ATOL``); the loaded
+    ``decode_step`` runs at two rows other than the traced one, and each
+    row must be written in the returned cache and in the caller's (the
+    same tensors), every other row left as it was.  The graphs run the
+    plain step on the bf16 cache: no CUDA kernel of the port runs (the
+    launch counts are checked unchanged)."""
+    import tempfile
+
+    import torch
+    from chattts_tpu_torch.examples import exporter
+    from chattts_tpu_torch.models import llama
+    from chattts_tpu_torch.ops.decode_step import decode_step
+
+    t_phase = time.perf_counter()
+    cfg, dev = chat.config, chat.device
+    B, T0, new = EXPORT_SHAPE
+    launched = decode_step.launches
+    with tempfile.TemporaryDirectory() as d:
+        sizes = exporter.export_all(d, B, T0, new, device=dev, config=cfg)
+        t0 = time.perf_counter()
+        graphs = {n: torch.export.load(f"{d}/{n}.pt2").module()
+                  for n in exporter.GRAPHS}
+        t_load = time.perf_counter() - t0
+    trees = {"gp": chat.gpt_params, "ep": chat.embed_params,
+             "dp": chat.decoder_params, "vp": chat.vocos_params}
+    for name, size in sizes.items():
+        nbytes = sum(t.numel() * t.element_size()
+                     for p in exporter.STAGE_PARAMS[name]
+                     for t in torch.utils._pytree.tree_leaves(trees[p]))
+        check(1000 < size < nbytes / 4, f"export {name}: {size} bytes "
+              f"against {nbytes} bytes of parameters")
+    print("export: sizes (bytes, the parameters' bytes beside) " + ", ".join(
+        f"{n} {s}" for n, s in sizes.items()) + f"; loaded in {t_load:.2f} s")
+    fns = exporter.stage_functions(cfg, B, T0, new)
+    g = cfg.gpt
+    gen = torch.Generator().manual_seed(15)
+    ids = torch.randint(0, g.num_audio_tokens, (B, T0, g.num_vq),
+                        generator=gen)
+    tmask = torch.zeros((B, T0), dtype=torch.bool)
+    tmask[:, :T0 // 2] = True
+    ids[..., 0] = torch.where(tmask, torch.randint(
+        0, g.num_text_tokens, (B, T0), generator=gen), ids[..., 0])
+    attn = torch.ones((B, T0), dtype=torch.bool)
+    attn[:, :5] = False  # left padding
+    hidden = torch.randn((B, g.hidden_size), generator=gen)
+    hiddens = torch.randn((B, 128, g.hidden_size), generator=gen)
+    ids, tmask, attn = ids.to(dev), tmask.to(dev), attn.to(dev)
+    hidden, hiddens = hidden.to(dev), hiddens.to(dev)
+
+    def run(name, *inputs):
+        args = tuple(trees[p] for p in exporter.STAGE_PARAMS[name]) + inputs
+        return graphs[name](*args), fns[name](*args)
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    errs = {}
+    (h_g, c_g), (h_e, c_e) = run("prefill", ids, attn, tmask)
+    errs["prefill hidden"] = (gap(h_g, h_e), EXPORT_ATOL["hidden"])
+    errs["prefill cache"] = (max(gap(a, b) for a, b in zip(
+        c_g.k + c_g.v, c_e.k + c_e.v)), EXPORT_ATOL["cache"])
+    logits_g, logits_e = run("heads", hidden)
+    errs["heads logits"] = (gap(logits_g, logits_e), EXPORT_ATOL["logits"])
+    wav_g, wav_e = run("vocoder", hiddens)
+    check(wav_g.shape == wav_e.shape == (B, 255 * 256),
+          f"export vocoder: {tuple(wav_g.shape)}")
+    errs["vocoder wav"] = (gap(wav_g, wav_e), EXPORT_WAV_OF_PEAK
+                           * float(wav_e.abs().max()))
+    token = torch.randint(0, g.num_audio_tokens, (B, g.num_vq),
+                          generator=gen).to(dev)
+    Tbuf = T0 + new
+    for cur in EXPORT_CURS:
+        lo = torch.tensor([5], device=dev)
+        kv = (torch.arange(Tbuf, device=dev)[None] >= lo[:, None])
+        pos = torch.tensor([cur], device=dev) - lo
+        mine = llama.KVCache(tuple(t.clone() for t in c_e.k),
+                             tuple(t.clone() for t in c_e.v))
+        before = [t.clone() for t in mine.k + mine.v]
+        eager = llama.KVCache(tuple(t.clone() for t in c_e.k),
+                              tuple(t.clone() for t in c_e.v))
+        args = (trees["gp"], trees["ep"], token)
+        tail = (torch.tensor(cur, device=dev), kv, pos)
+        h_d, c_d = graphs["decode_step"](*args, mine, *tail)
+        h_de, c_de = fns["decode_step"](*args, eager, *tail)
+        other = torch.arange(Tbuf, device=dev) != cur
+        for got, passed, old in zip(c_d.k + c_d.v, mine.k + mine.v, before):
+            check(got is passed or torch.equal(got, passed),
+                  f"export decode_step at cur {cur}: the caller's cache "
+                  "was not written")
+            check(not torch.equal(got[:, cur], old[:, cur])
+                  and torch.equal(got[:, other], old[:, other]),
+                  f"export decode_step at cur {cur}: not row {cur} alone "
+                  "was written")
+        errs[f"decode hidden, cur {cur}"] = (gap(h_d, h_de),
+                                             EXPORT_ATOL["hidden"])
+        errs[f"decode cache, cur {cur}"] = (max(gap(a, b) for a, b in zip(
+            c_d.k + c_d.v, c_de.k + c_de.v)), EXPORT_ATOL["cache"])
+    torch.cuda.synchronize()
+    for what, (err, limit) in errs.items():
+        check(err <= limit, f"export: loaded {what} differs from the eager "
+              f"port by {err} (limit {limit})")
+    check(decode_step.launches == launched,
+          "export: a CUDA kernel of the port ran in the export phase")
+    print("export: loaded graphs against the eager port functions, max-abs "
+          "(limit): " + ", ".join(f"{w} {e:.3e} ({lim:.1e})"
+                                  for w, (e, lim) in errs.items())
+          + f"; decode_step wrote rows {list(EXPORT_CURS)} (traced at {T0}) "
+          "in the returned cache and the caller's alike; no CUDA kernel of "
+          "the port ran (the graphs hold the plain step on the bf16 cache, "
+          f"as the JAX exporter's hold the XLA step); phase in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+PLAYER_MAX_NEW = 128
+
+
+def phase_player(kernels, launches):
+    """``stream_player.main`` in process on the card: ``--source random``,
+    ``--max-new`` PLAYER_MAX_NEW, the refine pass and the code pass on the
+    Generator of a chat the player loads itself (the int8 cache: K3), as a
+    main path: the launch counts set to 0 just before and read just after,
+    the first and the 49th step kept and held to the plain version of that
+    chat's weights, the launches folded into the kernels line.  The wav is
+    read back: 24 kHz, non-empty.  Prints the wall (the player logs its
+    time to the first block)."""
+    import os
+    import tempfile
+    import wave
+
+    from chattts_tpu_torch import Chat
+    from chattts_tpu_torch.engine import generate as gen_mod
+    from chattts_tpu_torch.examples import stream_player
+    from chattts_tpu_torch.ops.decode_step import decode_step
+
+    made = []
+
+    class Recorded(Chat):
+        def load(self, *a, **k):
+            made.append(self)
+            return super().load(*a, **k)
+
+    keeper = Keeper(lambda n, cur, kc: n in (0, 48))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "player.wav")
+        stream_player.Chat, gen_mod.k1.decode_step = Recorded, keeper
+        decode_step.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rc = stream_player.main([TEXTS[0], "--source", "random",
+                                     "--max-new", str(PLAYER_MAX_NEW),
+                                     "-o", out])
+        finally:
+            stream_player.Chat, gen_mod.k1.decode_step = Chat, decode_step
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"player: main returned {rc}")
+        with wave.open(out, "rb") as w:
+            rate, frames = w.getframerate(), w.getnframes()
+    check(rate == 24000 and frames > 0, f"player wav: {rate} Hz, "
+          f"{frames} frames")
+    counts = {v: n for v, n in decode_step.variant_launches.items() if n}
+    check(len(made) == 1 and sum(counts.values()) == keeper.n > 0,
+          f"player: {counts} launches for {keeper.n} calls")
+    c = made[0]
+    err = check_kept_calls(c.packed, c.gpt_params["norm"], c.config.gpt,
+                           keeper.kept, "player", 2)
+    for v in counts:
+        _fold(kernels, launches, {v: counts[v]}, v, err)
+    print(f"player: in process, {frames} samples at {rate} Hz, wall "
+          f"{wall:.2f} s (load, refine and code passes); launches {counts}; "
+          f"kept calls' hidden max-abs {err:.3e}")
+    del made, c
+
+
 STREAM_TOL = 2e-4       # window vs one-shot decode past the first window
 FIRST_WINDOW_SNR_DB = 60.0  # the first window, emitted under first_guard
 
@@ -2831,8 +3083,11 @@ def phase_serving(chat, kernels, launches):
     (the first step of the load and the one 48 steps on) against the plain
     version.  Then an aborted stream frees its slot and a later request is
     admitted and served, and the port's HTTP server on 127.0.0.1 answers
-    ``/health``, ``/generate_voice`` and a streamed ``/v1/audio/speech``.
-    Prints the time to the first chunk (p50, p95), requests per second and
+    ``/health``, ``/generate_voice`` and a streamed ``/v1/audio/speech``;
+    the stream player's ``http_stream`` reads the same body again through
+    its ``StreamRebuffer``: the samples equal the post's, or, where the
+    engine does not repeat the seeded stream, equal in length (the reason
+    printed), and the time to its first block.  Prints the time to the first chunk (p50, p95), requests per second and
     the peak slots."""
     import threading
     import urllib.request
@@ -2841,7 +3096,7 @@ def phase_serving(chat, kernels, launches):
     import torch
     from chattts_tpu_torch import Chat
     from chattts_tpu_torch.engine import generate as gen_mod
-    from chattts_tpu_torch.examples import api_server
+    from chattts_tpu_torch.examples import api_server, stream_player
     from chattts_tpu_torch.ops.decode_step import decode_step
     from chattts_tpu_torch.serving import TTSService
     from chattts_tpu_torch.utils.audio import read_wav_stream
@@ -3001,6 +3256,24 @@ def phase_serving(chat, kernels, launches):
               and rate == 24000 and pcm.size > 0
               and bool(np.isfinite(pcm).all()),
               f"streamed /v1/audio/speech: {ctype}, {len(body)} bytes")
+        # the stream player's reader on the same body, re-buffered
+        rebuf = stream_player.StreamRebuffer(4096)
+        blocks, first_block = [], None
+        t = time.perf_counter()
+        for chunk in stream_player.http_stream(
+                url, "Streaming over HTTP.", 128, min_new_token=96,
+                manual_seed=8):
+            for block in rebuf.push(chunk):
+                first_block = first_block or time.perf_counter() - t
+                blocks.append(block)
+        player_s = time.perf_counter() - t
+        tail = rebuf.flush()
+        played = np.concatenate(blocks + ([tail] if tail is not None
+                                          else []))
+        same = played.shape == pcm.shape and np.array_equal(played, pcm)
+        check(same or played.shape == pcm.shape,
+              f"stream player over HTTP: {played.shape} samples, the post "
+              f"gave {pcm.shape}")
     finally:
         httpd.shutdown()
         httpd.server_close()  # closes the service too
@@ -3008,6 +3281,16 @@ def phase_serving(chat, kernels, launches):
     print(f"serving: HTTP /health, /generate_voice ({len(wav)} bytes) and a "
           f"streamed /v1/audio/speech ({pcm.size} samples in {http_s:.3f} s) "
           f"answered")
+    print(f"serving: the stream player's http_stream on the same body: "
+          f"{len(blocks)} blocks of 4096 and a tail of "
+          f"{0 if tail is None else tail.size}, first block "
+          f"{first_block if first_block is not None else float('nan'):.3f} "
+          f"s, all in {player_s:.3f} s; " + (
+              "the samples equal the post's" if same else
+              "the samples differ from the post's, equal in length: the "
+              "engine does not repeat a seeded stream bit for bit (its "
+              "sums follow the slot the request takes), max-abs "
+              f"{float(np.abs(played - pcm).max()):.3e}"))
 
 
 def phase_engine_wide(chat, kernels, launches):
@@ -4644,6 +4927,15 @@ def main():
         print(f"chip_smoke --gemv: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
+    if sys.argv[1:] == ["--export"]:
+        from chattts_tpu_torch import Chat
+
+        chat = Chat()
+        chat.load(source="random", seed=0)
+        phase_export(chat)
+        print(f"chip_smoke --export: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         from chattts_tpu_torch import Chat
 
@@ -4702,6 +4994,9 @@ def main():
     lap("infer on the Generator")
     phase_load(chat, kernels, launches)
     lap("load")
+    phase_export(chat)
+    phase_player(kernels, launches)
+    lap("export and player")
     engine_chat = twin(use_engine=True)
     phase_multi_segment(chat, engine_chat, kernels, launches)
     lap("multi-segment")

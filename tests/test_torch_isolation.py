@@ -39,8 +39,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {"kv_quant.py", "threefry.py", "batching.py", "decode_step.py",
             "streaming.py", "serving.py", "api_server.py", "audio.py",
             "logger.py", "seeder.py", "train.py", "checkpoint.py",
-            "comm.py", "mesh.py", "graft_entry.py",
-            "chip_smoke.py"} <= {p.name
+            "comm.py", "mesh.py", "graft_entry.py", "exporter.py",
+            "stream_player.py", "chip_smoke.py"} <= {p.name
                                                           for p in files}
     bad = []
     for path in files:
