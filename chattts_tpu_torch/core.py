@@ -187,8 +187,10 @@ class Chat:
         ``CHATTTS_STEP_INT4``; one value is passed, so neither wins).
         ``kv_bits``: 8 keeps the KV cache in int8 rows with embedded scales
         (the reference's default), 4 in nibble-packed rows with the same
-        scales (its ``CHATTTS_KV_INT4``; engines then take up to 64 slots),
-        0 in bf16.
+        scales (its ``CHATTTS_KV_INT4``; an engine then keeps it up to 64
+        slots), 0 in bf16.  An engine wider than its tier's slot limit (16
+        on bf16, 32 on int8) serves on the bf16 cache with bf16 weights, as
+        the reference's does; the facade's own engines fit their limits.
         """
         dev = resolve_device(device)
         tiers = dict(device=dev, use_engine=use_engine,

@@ -45,10 +45,14 @@
 // multiplies a sum, never a weight.
 //
 // A row's result depends on that row's inputs only, never on B or on the
-// other rows: every sum runs in an order fixed by K alone.  Above 32 rows
-// the gemv runs over row halves (grid.y): a block keeps at most 32 bf16
-// input rows in shared memory (194 KB at K 3072), and the weights are read
-// once per half, the second time mostly from L2.
+// other rows: every sum runs in an order fixed by K alone.  The gemv runs
+// over row groups of 32 (grid.y): a block keeps at most 32 bf16 input rows
+// in shared memory (194 KB at K 3072) whatever B is, and the weights are
+// read once per group, after the first mostly from L2.  A step takes 1 to
+// kMaxB rows: the attention pair's grid has B in gridDim.z, whose limit is
+// 65535, and every index that grows with B (cache rows, scores, chunk
+// maxima, partials, tickets, the gemv's input and output rows) is formed
+// in size_t; B * H, the ticket count, fits an int at that B.
 //
 // Bound on an H100: the step streams every weight once,
 // L*(4*D*D + 3*D*I) of them at 2, 1 or 1/2 bytes (377, 189 or 94 MB at
@@ -65,8 +69,8 @@
 // counterpart here.
 //
 // The gemv (four launches a layer) reads each weight byte once per row
-// half: block (x, y) owns kGemvTiles tiles of 8 output columns for the up
-// to 32 rows of half y, and first builds those rows' bf16 inputs in shared
+// group: block (x, y) owns kGemvTiles tiles of 8 output columns for the up
+// to 32 rows of group y, and first builds those rows' bf16 inputs in shared
 // memory (the prologue: rms norm or silu * up, from the f32 rows in L2).
 // Its kGemvWarps warps split K into contiguous slices of 32-value steps;
 // for each step a lane loads 8 weights of one column with one 16-, 8- or
@@ -133,7 +137,7 @@
 
 namespace {
 
-constexpr int kMaxB = 64;        // most batch rows a step takes
+constexpr int kMaxB = 65535;     // most batch rows: gridDim.z of attention
 constexpr int kRowsPerBlock = 32;  // input rows a gemv block keeps
 constexpr int kKvPad = 128;      // pad lanes of a quantized cache row
 // warps of a gemv block, each a contiguous slice of K, and the 8-column
@@ -1192,7 +1196,7 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
 // x = [gate | up]) on x (B, K) f32 (B, 2K for silu) rows x_stride floats
 // apart, W (N, K) of `weight_bits` (0 bf16, 8 int8, 4 int4 nibbles) with
 // scale (N, K / group) f32 on a quantized tier, out rows out_stride floats
-// apart.  Device pointers; 1 <= B <= 64, K % 8 == 0, group % 32 == 0 and
+// apart.  Device pointers; 1 <= B <= 65535, K % 8 == 0, group % 32 == 0 and
 // K % group == 0.  Returns the first CUDA error (0 on success).
 int decode_step_gemv(const void* x, int x_stride, const void* lnw,
                      const void* w, const void* scale, int group, void* out,

@@ -87,19 +87,25 @@ from ..parallel import mesh as mesh_mod
 from .generate import REP_WINDOW, GenerationOutputs
 
 # steps whose sampling noise is drawn in one go (bounds its memory: a block
-# of the text vocabulary at 8 slots is 32 x 8 x 21178 values)
+# of the text vocabulary at 8 slots is 32 x 8 x 21178 values; at 128 slots
+# it is 347 MB of f32, which a card holds)
 NOISE_BLOCK = 32
+# slots of the reference's documented int4-cache configuration (slot count
+# over throughput; its CHATTTS_ENGINE_FUSED_SLOTS=64), not a kernel limit
+KV4_SLOTS = 64
 # rows of the per-chunk status block
 _FINISH, _ACTIVE, _END, _STEP_IN, _MAX_NEW, _SEQ_OFF, _RAN = range(7)
 
 
 def fused_slot_limit(kv_bits: int) -> int:
-    """Widest slot count an engine serves: 32 with the int8 cache, 16 with
-    the bf16 cache (the reference's defaults; the 32-slot "wide" tier exists
-    only with a quantized cache), and the decode step's 64 rows where the
-    caller asks for the int4 cache (the reference's documented 64-slot
-    configuration, slot count over throughput)."""
-    return {0: 16, 8: 32, 4: step_mod.MAX_ROWS}[kv_bits]
+    """Widest slot count an engine serves on the cache tier it was asked
+    for: 32 with the int8 cache, 16 with the bf16 cache (the reference's
+    defaults; the 32-slot "wide" tier exists only with a quantized cache),
+    and 64 with the int4 cache (the reference's documented 64-slot
+    configuration).  A wider engine serves on the bf16 cache with bf16
+    weights, as the reference's engine past its limit serves on its XLA
+    step (``chattts_tpu/engine/batching.py``, ``_fused`` and ``_kvb``)."""
+    return {0: 16, 8: 32, 4: KV4_SLOTS}[kv_bits]
 
 
 @dataclass(frozen=True)
@@ -323,11 +329,14 @@ class Engine:
                  mesh: Optional[mesh_mod.Mesh] = None):
         """``packed``: the decode kernel's weight layout, shared with other
         engines and the Generator of the same weights (one copy).
-        ``kv_bits``: 8 (int8 cache, the default), 4 (int4 cache, up to 64
-        slots) or 0 (bf16 cache).  ``mesh``: a (dp, sp, tp) mesh of which
-        this process is a rank (see the module's docstring); the weights
-        given are the full ones, every rank the same.  ``max_num_seqs``
-        must divide by dp and the slot limit holds for a rank's share."""
+        ``kv_bits``: 8 (int8 cache, the default), 4 (int4 cache) or 0
+        (bf16 cache).  A rank's slots past ``fused_slot_limit(kv_bits)``
+        are served as the reference serves them: on the bf16 cache with
+        bf16 weights (``kv_bits`` then reads 0, and one line is logged),
+        by the same CUDA step at that width.  ``mesh``: a (dp, sp, tp)
+        mesh of which this process is a rank (see the module's
+        docstring); the weights given are the full ones, every rank the
+        same.  ``max_num_seqs`` must divide by dp."""
         dp, tp = 1, 1
         if mesh is not None:
             if mesh.coords is None:
@@ -339,15 +348,19 @@ class Engine:
                 raise ValueError("max_num_seqs must divide dp size")
         self.mesh = mesh
         self._heads = step_mod.local_heads(cfg, tp)
+        S_loc = ecfg.max_num_seqs // dp
+        if kv_bits in (0, 8, 4) and S_loc > fused_slot_limit(kv_bits):
+            logging.getLogger(__name__).warning(
+                "%d slots (a rank's) exceed the %d of kv_bits=%d: serving "
+                "on the bf16 cache with bf16 weights", S_loc,
+                fused_slot_limit(kv_bits), kv_bits)
+            kv_bits = 0
+            if packed is not None and step_mod.weight_bits_of(packed, cfg):
+                packed = None
         if tp > 1 and kv_bits == 4:
             raise ValueError("the kv4 cache does not shard over tp: its rows "
                              "need heads * head_dim % 256 == 0 on a rank")
         self._quantize = kv_quantizer(kv_bits, self._heads)
-        S_loc = ecfg.max_num_seqs // dp
-        if S_loc > fused_slot_limit(kv_bits):
-            raise ValueError(
-                f"{S_loc} slots (a rank's) exceed the decode step's "
-                f"{fused_slot_limit(kv_bits)} rows at kv_bits={kv_bits}")
         ecfg.buckets  # validates the prompt buckets
         self.cfg = cfg
         self.ecfg = ecfg

@@ -71,7 +71,9 @@ row attention reads (W on bf16; the values and one 32-byte sector of head
 scales on kv8 and kv4).  The kernel's design is described at the top of
 ``csrc/decode_step.cu``: per layer four gemvs and the attention pair
 (scores, then values over chunks of :attr:`DecodeStep.attn_chunk` keys, as
-the library was built), six launches, seven on kv4.  The wrapper allocates
+the library was built), six launches, seven on kv4, at any batch width:
+the gemv takes its rows in groups of 32 (a weight is read once a group)
+and a row's result does not depend on the batch.  The wrapper allocates
 the pair's scratch on every call and keeps its tickets (one counter per
 (row, head), which the kernel leaves at zero) per device and stream.
 """
@@ -90,7 +92,9 @@ from .kv_quant import (KV_PAD, kv4_packable, kv_quantizer, row_scales,
                        row_width, unpack_nibbles)
 
 NEG = -1e30  # masked-score value of the TPU kernel
-MAX_ROWS = 64  # batch rows a step takes (kMaxB in csrc/decode_step.cu)
+# most batch rows a launch takes: the attention grid's gridDim.z (kMaxB in
+# csrc/decode_step.cu); any B the reference takes fits
+MAX_ROWS = 65535
 MATRICES = ("wqkv", "wo", "wgu", "wd")
 # cache and position part of a variant's name, then the weight tier's
 VARIANTS = tuple(base + w for w in ("", "k4", "k5")

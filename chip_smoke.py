@@ -166,6 +166,14 @@
    player's ``main`` in process (``--source random``, the Generator on
    the int8 cache: K3) as a main path, its launches counted and folded
    into the kernels line.  The player over HTTP runs in ``phase_serving``.
+13. Batches wider than 64 rows (``phase_wide``), after the engines: the
+   refine pass of an 80-sentence text (K3 at 80 rows), a code pass on 96
+   texts on the int8 cache (K3) and on int4 weights and cache (K5 on K6),
+   and an Engine of 96 slots asked for the int8 cache, which serves on the
+   bf16 cache (K2 at 96 rows), each a main path with kept calls held to
+   the plain version and its calls counted by batch width; K2 timed at 96
+   rows.  Phase 2 holds every variant at 128 rows too (at 4 layers) and
+   times K3 at 96 and 128 rows.
 ``python3 chip_smoke.py --sweep-chunk`` runs only ``sweep_chunk``: the
 attention chunk at 32, 64 and 128 keys, side by side.
 ``python3 chip_smoke.py --gemv`` builds and runs only ``phase_gemv``;
@@ -1109,6 +1117,13 @@ def _time_variant(variant, cfg, packs, B, T, cur, cur_rows, lo, gen, dev):
                       cur_rows - lo, "seeded caches", profile=True)
 
 
+# batch widths past the 64 rows a step took before any width: the cases
+# at 128 rows run this many layers (the full width; 20 layers at 128 rows
+# would add a minute of plain steps), K3 is timed at 96 and 128 rows
+WIDE_CASE_LAYERS = 4
+WIDE_TIMED = (96, 128)
+
+
 def phase_kernel(dev):
     """Every variant against its plain version at the full width, and its
     times.  Returns {row: entry of the kernels line}."""
@@ -1117,6 +1132,8 @@ def phase_kernel(dev):
     from chattts_tpu_torch.models import llama
     from chattts_tpu_torch.ops.decode_step import VARIANTS, pack_weights
     from chattts_tpu_torch.weights import to_device
+
+    import dataclasses
 
     cfg = Config().gpt
     gen = torch.Generator().manual_seed(1)
@@ -1152,6 +1169,15 @@ def phase_kernel(dev):
     # the earlier variants on the second row half
     for variant in ("k1", "k2k3"):
         case(variant, 64, 512)
+    # every variant at 128 rows (four row groups of the gemv, 128 in the
+    # attention grid's z), cut to WIDE_CASE_LAYERS layers for time
+    wcfg = dataclasses.replace(cfg, num_hidden_layers=WIDE_CASE_LAYERS)
+    wpacks = {bits: {k: v[:WIDE_CASE_LAYERS].contiguous()
+                     for k, v in p.items()} for bits, p in packs.items()}
+    for variant in VARIANTS:
+        worst[variant] = max(worst[variant], _kernel_case(
+            variant, wcfg, wpacks, norm, 128, 512, gen, dev))
+    del wpacks
 
     # times: the scalar-cur variants at the Generator's shape of phase 4's
     # kind (B 8, T 512, cur 256), K2+K3 at the engine phase's (16 slots,
@@ -1180,6 +1206,11 @@ def phase_kernel(dev):
         elif timed not in (None, "k2"):
             entries[row].update(_time_variant(
                 timed, cfg, packs, *generator_shape, gen, dev))
+    # K3 past 64 rows at the Generator's shape, for the tables (not in the
+    # kernels line): 96 and 128 rows, cur 256, lo as the 8-row case's
+    for B in WIDE_TIMED:
+        _time_variant("k3", cfg, packs, B, 512, 256, torch.full((B,), 256),
+                      lo_g.repeat(B // 8), gen, dev)
     return entries
 
 
@@ -1722,19 +1753,22 @@ def check_kept_calls(packed, norm, cfg, kept, what, at_least):
 
 class Keeper:
     """Stands in for ``decode_step`` in a module's namespace: calls through,
-    and keeps the inputs and results of the calls ``want(n, cur, kc)`` picks
-    (device copies, made without a host sync)."""
+    counts its calls by batch width (``widths``), and keeps the inputs and
+    results of the calls ``want(n, cur, kc)`` picks (device copies, made
+    without a host sync)."""
 
     def __init__(self, want):
         from chattts_tpu_torch.ops.decode_step import decode_step
 
         self.inner, self.want, self.kept, self.n = decode_step, want, [], 0
+        self.widths = collections.Counter()
 
     def __call__(self, packed, emb, kc, vc, cur, lo, pos, cfg):
         import torch
 
         keep = self.want(self.n, cur, kc)
         self.n += 1
+        self.widths[emb.shape[0]] += 1
         if not keep:
             return self.inner(packed, emb, kc, vc, cur, lo, pos, cfg)
         before = tuple(t.clone() if isinstance(t, torch.Tensor) else t
@@ -1841,7 +1875,7 @@ def _encode_share(chat, wav, cpu_codes):
     return shares
 
 
-def _main_path_run(c, run, title, at_least, later=48):
+def _main_path_run(c, run, title, at_least, later=48, widths=None):
     """``run()`` on the facade ``c`` as a main path: the launch counts set
     to 0 just before and read just after, ``decode_step`` (the Generator's
     and the engine's) replaced by a Keeper that keeps the first call of
@@ -1851,9 +1885,10 @@ def _main_path_run(c, run, title, at_least, later=48):
     Generator pass: its last output's).
     Every call must have launched one kernel, the launches cover the
     steps, at least ``at_least`` calls are kept, and the kept calls are
-    held to the plain version variant by variant.  Returns (the result,
-    wall seconds, launches by variant, {variant: the kept calls' largest
-    hidden error}, the decode steps of each pass)."""
+    held to the plain version variant by variant.  ``widths``, a Counter,
+    gets the calls by batch width.  Returns (the result, wall seconds,
+    launches by variant, {variant: the kept calls' largest hidden error},
+    the decode steps of each pass)."""
     import torch
     from chattts_tpu_torch.engine import batching
     from chattts_tpu_torch.engine import generate as gen_mod
@@ -1923,6 +1958,8 @@ def _main_path_run(c, run, title, at_least, later=48):
           f"{sum(steps)} decode steps")
     check(len(keeper.kept) >= at_least,
           f"{title}: kept {len(keeper.kept)} calls, expected {at_least}")
+    if widths is not None:
+        widths.update(keeper.widths)
     cfg = c.config.gpt
     errs = {}
     for v in counts:
@@ -3298,7 +3335,12 @@ def phase_engine_wide(chat, kernels, launches):
     routes it: more than 16 requests on a quantized cache go there.  40
     seeded requests through ``Engine.generate``; every output checked, 32
     slots live at the peak, and kept calls (the first, and the first after
-    the slots turned over) held against the plain version."""
+    the slots turned over) held against the plain version.  Then 40
+    requests of their own fixed lengths, which keep the slots full long
+    enough that the tier preempts: the count printed, every request ended
+    with its own length, a call after a resume held."""
+    import numpy as np
+
     cfg = chat.config.gpt
     max_new = chat._code_engine_geometry("wide").max_new_tokens
     check(chat._code_tier_for(40, max_new, 200) == "wide",
@@ -3329,7 +3371,167 @@ def phase_engine_wide(chat, kernels, launches):
         chat.packed, chat.gpt_params["norm"], cfg, keeper.kept,
         "engine wide 32 slots", 2))
     _print_engine_run("engine wide 32 slots", eng, outs, wall)
+
+    # a load that preempts: 40 requests that each run to their own length
+    # (min_new == max_new, 120-200 tokens), so the 32 slots stay full past
+    # the tier's 4 chunks while 8 wait; every request must end with its own
+    # length, and the first call after a resume prefill is kept
+    eng.reset_stats()
+    marks.clear()
+
+    def want_resumed(n, cur, kc):
+        if "resumed" not in marks and eng.stats.get("preemptions", 0) > 0 \
+                and eng.stats["prefills"] > 40:
+            marks["resumed"] = n
+            return True
+        return False
+
+    reqs = _engine_requests(cfg, 40)
+    lengths = np.random.default_rng(8).integers(120, 201, len(reqs))
+    for r, n in zip(reqs, lengths):
+        r.min_new = r.max_new = int(n)
+    outs, wall, counts, keeper = _engine_run(eng, reqs, want_resumed)
+    _check_engine_outputs(outs, reqs, cfg)
+    preempted = eng.stats.get("preemptions", 0)
+    print(f"engine wide 32 slots under preemption: {preempted} preemptions, "
+          f"{eng.stats['prefills']} prefills")
+    check(preempted > 0 and eng.stats["prefills"] == 40 + preempted
+          and not eng.has_unfinished(),
+          f"the wide tier preempted {preempted} times in "
+          f"{eng.stats['prefills']} prefills")
+    check(all(o.ids.shape[0] == r.max_new and o.finish_reason == "length"
+              for o, r in zip(outs, reqs)),
+          "a preempted request did not end with its own length")
+    check("resumed" in marks, "no call was kept after a resume prefill")
+    _fold(kernels, launches, counts, "k2k3", check_kept_calls(
+        chat.packed, chat.gpt_params["norm"], cfg, keeper.kept,
+        "engine wide 32 slots with preemption", 1))
+    _print_engine_run("engine wide 32 slots with preemption", eng, outs,
+                      wall)
     del chat._code_engines["wide"]
+
+
+# the wide batches phase: one refine pass of WIDE_SENTENCES rows, code
+# passes of WIDE_TEXTS rows and WIDE_NEW new tokens, an engine of
+# WIDE_SLOTS slots
+WIDE_SENTENCES, WIDE_TEXTS, WIDE_NEW, WIDE_SLOTS = 80, 96, 64, 96
+WIDE_WORDS = ("Hello", "quick", "brown", "speech", "card", "port", "river",
+              "stone", "light", "green")
+
+
+def _wide_texts(n):
+    """``n`` distinct short sentences."""
+    w = WIDE_WORDS
+    return [f"{w[i % 10]} {w[i // 10 % 10].lower()} line {w[i // 100 % 10]}."
+            for i in range(n)]
+
+
+def phase_wide(chat, kernels, launches):
+    """Batches wider than the 64 rows a step took before any width, each a
+    main path (_main_path_run: launches counted around it, kept calls held
+    to the plain version, calls counted by batch width): the refine pass of
+    an 80-sentence text with ``refine_text_only=True`` (K3 at 80 rows); a
+    code pass on 96 texts with ``split_text=False, skip_refine_text=True``
+    and 64 new tokens (K3 at 96 rows), and the same on a ``weight_bits=4,
+    kv_bits=4`` twin (K5 on K6 at 96 rows); an Engine of 96 slots asked for
+    the int8 cache, which serves, as the reference does past its slot
+    limit, on the bf16 cache (K2 at 96 rows) 96 short requests, K2 timed on
+    a call of that run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from chattts_tpu_torch import Chat
+    from chattts_tpu_torch.engine import batching
+
+    cfg = chat.config.gpt
+    refine = Chat.RefineTextParams(max_new_token=32, min_new_token=4,
+                                   manual_seed=11, show_tqdm=False)
+    code = Chat.InferCodeParams(max_new_token=WIDE_NEW,
+                                min_new_token=WIDE_NEW, manual_seed=12,
+                                show_tqdm=False)
+    widths = collections.Counter()
+    text = " ".join(_wide_texts(WIDE_SENTENCES))
+    title = f"wide refine {WIDE_SENTENCES} sentences"
+    out, wall, counts, errs, steps = _main_path_run(
+        chat, lambda: chat.infer(text, refine_text_only=True,
+                                 params_refine_text=refine), title, 1,
+        widths=widths)
+    check(set(counts) == {"k3"} and set(widths) == {WIDE_SENTENCES},
+          f"{title}: launches {counts}, calls by width {dict(widths)}")
+    check(isinstance(out, str)
+          and len(out.split("\n")) == WIDE_SENTENCES,
+          f"{title}: {out!r:.200}")
+    _fold(kernels, launches, counts, "k3", errs["k3"])
+    print(f"{title}: {steps} steps at {WIDE_SENTENCES} rows, wall "
+          f"{wall:.3f} s, {sum(steps) / wall:.1f} steps/s, k3 launches "
+          f"{counts['k3']}")
+
+    texts = _wide_texts(WIDE_TEXTS)
+    twin = Chat(config=chat.config)
+    twin.load_params(gpt=chat.gpt_params, embed=chat.embed_params,
+                     decoder=chat.decoder_params, vocos=chat.vocos_params,
+                     dvae=chat.dvae_params, device=chat.device,
+                     weight_bits=4, kv_bits=4)
+    for c, variant in ((chat, "k3"), (twin, "k6k5")):
+        widths.clear()
+        title = (f"wide code pass {WIDE_TEXTS} texts weight_bits="
+                 f"{c.weight_bits} kv_bits={c.kv_bits}")
+        wavs, wall, counts, errs, steps = _main_path_run(
+            c, lambda: c.infer(texts, split_text=False,
+                               skip_refine_text=True, params_infer_code=code),
+            title, 2, widths=widths)
+        check(set(counts) == {variant} and set(widths) == {WIDE_TEXTS},
+              f"{title}: launches {counts}, calls by width {dict(widths)}")
+        check(len(wavs) == WIDE_TEXTS
+              and all(w.ndim == 1 and w.size > 0 and np.isfinite(w).all()
+                      for w in wavs), f"{title}: waveforms")
+        _fold(kernels, launches, counts, variant, errs[variant])
+        audio_s = sum(w.size for w in wavs) / chat.config.vocos.mel.sample_rate
+        print(f"{title}: {steps} steps at {WIDE_TEXTS} rows, wall {wall:.3f} "
+              f"s, {sum(steps) / wall:.1f} steps/s, audio {audio_s:.2f} s, "
+              f"audio s / wall s {audio_s / wall:.3f}, {variant} launches "
+              f"{counts[variant]}")
+    del twin
+
+    # an engine past its tier's slot limit, asked for the int8 cache
+    ecfg = dataclasses.replace(
+        chat._code_engine_geometry("fast"), max_num_seqs=WIDE_SLOTS,
+        max_new_tokens=WIDE_NEW, preempt_after_chunks=None,
+        max_stream_slots=None)
+    check(batching.fused_slot_limit(8) < WIDE_SLOTS,
+          "the wide engine is inside the int8 cache's slot limit")
+    eng = batching.Engine(cfg, ecfg, chat.gpt_params, chat.embed_params,
+                          spk_emb_ids=chat.tokenizer.spk_emb_ids,
+                          packed=chat.packed, kv_bits=8)
+    check(eng.kv_bits == 0 and eng.state.kc.dtype == torch.bfloat16
+          and eng.state.kc.shape[1] == WIDE_SLOTS,
+          f"an engine of {WIDE_SLOTS} slots asked for kv8 reports kv_bits "
+          f"{eng.kv_bits}, cache {tuple(eng.state.kc.shape)} "
+          f"{eng.state.kc.dtype}")
+    eng.warmup()
+    reqs = _engine_requests(cfg, WIDE_SLOTS)
+    for r in reqs:  # short requests: every one fits a slot at once
+        r.max_new = min(r.max_new, WIDE_NEW)
+    # kept: the first call, and the 40th, past the rows' min_new of 32
+    outs, wall, counts, keeper = _engine_run(eng, reqs,
+                                             lambda n, cur, kc: n in (0, 40),
+                                             "k2")
+    _check_engine_outputs(outs, reqs, cfg)
+    check(eng.stats["peak_slots"] == WIDE_SLOTS
+          and set(keeper.widths) == {WIDE_SLOTS},
+          f"peak slots {eng.stats['peak_slots']}, calls by width "
+          f"{dict(keeper.widths)}")
+    _fold(kernels, launches, counts, "k2", check_kept_calls(
+        eng.packed, chat.gpt_params["norm"], cfg, keeper.kept,
+        f"engine {WIDE_SLOTS} slots asked for kv8", 2))
+    _print_engine_run(f"engine {WIDE_SLOTS} slots asked for kv8 (served "
+                      f"on the bf16 cache)", eng, outs, wall)
+    (emb, kc0, vc0, cur, lo, pos), _, _, _ = keeper.kept[-1]
+    packed = eng.packed
+    del outs, eng
+    _time_call("k2", cfg, packed, emb, kc0, vc0, cur, lo, pos,
+               f"the {WIDE_SLOTS}-slot engine's 40th step", profile=True)
 
 
 def _engine_requests(cfg, n=24):
@@ -5013,6 +5215,9 @@ def main():
     torch.cuda.empty_cache()
     phase_engine_64(chat, kernels, launches)
     lap("engines")
+    torch.cuda.empty_cache()
+    phase_wide(chat, kernels, launches)
+    lap("wide batches")
     torch.cuda.empty_cache()
     phase_mesh(chat, kernels, launches, first_run)
     del first_run

@@ -161,6 +161,49 @@ def test_infer_matches_reference(chats, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# batches wider than 64 rows, the decode step's limit before any batch width
+# ---------------------------------------------------------------------------
+
+WIDE = 65
+WORDS = ["hello", "world", "speech", "card", "quick", "fox", "brown", "port"]
+
+
+def _wide_texts(n):
+    return [f"{WORDS[i % 8]} {WORDS[i // 8 % 8]} line." for i in range(n)]
+
+
+def test_refine_pass_of_65_sentences_matches_reference(chats, monkeypatch):
+    """A text of 65 sentences with ``refine_text_only=True``: the refine
+    pass takes every sentence at once, 65 rows, teacher-forced; its prompts
+    are token-exact, its ids and the refined text equal the reference's."""
+    jchat, tchat = chats
+    text = " ".join(_wide_texts(WIDE))
+    ref, got, raws, port_log = _teacher_forced(
+        jchat, tchat, monkeypatch, text, WAV_RTOL_OF_PEAK,
+        refine_text_only=True)
+    assert len(port_log) == 1 and not raws
+    assert port_log[0][0].infer_text and len(port_log[0][1]) == WIDE
+    assert isinstance(got, str) and got == ref
+    assert len(got.split("\n")) == WIDE
+
+
+def test_code_pass_of_65_texts_matches_reference(chats, monkeypatch):
+    """65 texts, ``skip_refine_text=True, split_text=False``: one code pass
+    of 65 rows, teacher-forced; prompts token-exact, codes equal, and the
+    65 waveforms within 2e-2 of the batch's peak before the strip."""
+    jchat, tchat = chats
+    texts = _wide_texts(WIDE)
+    ref, got, (raw_got,), port_log = _teacher_forced(
+        jchat, tchat, monkeypatch, texts, WAV_RTOL_OF_PEAK,
+        skip_refine_text=True, split_text=False)
+    assert len(port_log) == 1 and not port_log[0][0].infer_text
+    assert len(port_log[0][1]) == WIDE and raw_got.shape[0] == WIDE
+    assert len(got) == len(ref) == WIDE
+    for g, raw in zip(got, raw_got):
+        np.testing.assert_array_equal(g, raw[np.abs(raw) > 1e-5])
+
+
+# ---------------------------------------------------------------------------
 # several segments: the auto-clone branch (segment 0 synthesized, encoded to
 # codes by the DVAE and used as every segment's prompt), use_decoder=False
 # ---------------------------------------------------------------------------

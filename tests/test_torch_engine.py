@@ -50,17 +50,19 @@ FUSED_CFG = GPTConfig(hidden_size=128, intermediate_size=256,
                       num_text_tokens=300, num_vq=4)
 
 
-def _parity_requests(cls, cfg):
+def _parity_requests(cls, cfg, n=5):
     rng = np.random.default_rng(3)
     return [cls(
         request_id=f"f{i}",
-        ids=rng.integers(5, 50, (5 + 2 * i, cfg.num_vq)).astype(np.int32),
-        text_mask=np.ones((5 + 2 * i,), bool),
+        ids=rng.integers(5, 50, (5 + 2 * (i % 5), cfg.num_vq)
+                         ).astype(np.int32),
+        text_mask=np.ones((5 + 2 * (i % 5),), bool),
         temperature=np.full((cfg.num_vq,), 0.7, np.float32),
         top_p=0.8, top_k=15, repetition_penalty=1.05,
         # request 1 cannot stop on EOS: a length finish among EOS finishes
-        min_new=6 if i == 1 else 2 + (i % 2), max_new=5 + i, seed=40 + i)
-        for i in range(5)]
+        min_new=6 if i == 1 else 2 + (i % 2), max_new=5 + i % 8,
+        seed=40 + i)
+        for i in range(n)]
 
 
 def _drain(eng, reqs):
@@ -74,8 +76,15 @@ def _drain(eng, reqs):
     return outs, order
 
 
-@pytest.mark.parametrize("chunk_steps", [4, 3])
-def test_engine_matches_jax_engine_teacher_forced(monkeypatch, chunk_steps):
+def _teacher_forced_parity(monkeypatch, n_requests, min_agree=0.8,
+                           **geom):
+    """The JAX Engine (``CHATTTS_PALLAS_STEP=1``, int8 cache asked for) and
+    the port's Engine (the int8 cache asked for) of one geometry on the same
+    weights and seeded requests, the port teacher-forced with the
+    reference's tokens.  Holds admission and finish order, ids, finish
+    reasons, hiddens and the engine counters equal, and the port's own
+    draws equal to the reference's on at least ``min_agree`` of the
+    slot-steps; returns (the JAX engine, the port's)."""
     monkeypatch.setenv("CHATTTS_PALLAS_STEP", "1")
     monkeypatch.delenv("CHATTTS_KV_INT8", raising=False)
     cfg = FUSED_CFG
@@ -83,21 +92,19 @@ def test_engine_matches_jax_engine_teacher_forced(monkeypatch, chunk_steps):
     ep = je.init_params(jax.random.PRNGKey(1), cfg)
     ep["head_code"] = ep["head_code"].at[
         :, :, cfg.num_audio_tokens - 1].multiply(EOS_SCALE)
-    geom = dict(max_num_seqs=2, max_prompt_len=16, max_new_tokens=12,
-                chunk_steps=chunk_steps, chunk_steps_max=chunk_steps,
-                prompt_buckets=(8, 16))
+    geom = dict(max_prompt_len=16, max_new_tokens=12, prompt_buckets=(8, 16),
+                **geom)
     jb._build_kernels.cache_clear()
     try:
         jeng = jb.Engine(cfg, jb.EngineConfig(**geom), gp, ep)
-        assert jeng._fused and jeng._kvb == 8
-        ref, ref_order = _drain(jeng, _parity_requests(jb.EngineRequest, cfg))
+        ref, ref_order = _drain(
+            jeng, _parity_requests(jb.EngineRequest, cfg, n_requests))
     finally:
         jb._build_kernels.cache_clear()
     assert {o.finish_reason for o in ref.values()} == {"eos", "length"}
 
     pcfg = port_config(cfg)
     eng = tb.Engine(pcfg, tb.EngineConfig(**geom), bridge(gp), bridge(ep))
-    assert eng.state.kc.dtype == torch.int8
     eos = cfg.num_audio_tokens - 1
     nvq = cfg.num_vq
     real_sample = tb.sampling.sample
@@ -120,7 +127,8 @@ def test_engine_matches_jax_engine_teacher_forced(monkeypatch, chunk_steps):
         return want.reshape(-1)
 
     monkeypatch.setattr(tb.sampling, "sample", teacher)
-    got, order = _drain(eng, _parity_requests(tb.EngineRequest, pcfg))
+    got, order = _drain(eng, _parity_requests(tb.EngineRequest, pcfg,
+                                              n_requests))
 
     assert order == ref_order
     for rid, r in ref.items():
@@ -133,9 +141,42 @@ def test_engine_matches_jax_engine_teacher_forced(monkeypatch, chunk_steps):
     for key in ("prefills", "steps", "requests_finished", "tokens_generated",
                 "peak_slots"):
         assert eng.stats[key] == jeng.stats[key], key
-    assert np.mean(agree) >= 0.8, np.mean(agree)
+    assert np.mean(agree) >= min_agree, np.mean(agree)
     print(f"own draws equal to the reference's: {np.mean(agree):.3f} "
           f"of {len(agree)}")
+    return jeng, eng
+
+
+@pytest.mark.parametrize("chunk_steps", [4, 3])
+def test_engine_matches_jax_engine_teacher_forced(monkeypatch, chunk_steps):
+    jeng, eng = _teacher_forced_parity(
+        monkeypatch, 5, max_num_seqs=2, chunk_steps=chunk_steps,
+        chunk_steps_max=chunk_steps)
+    assert jeng._fused and jeng._kvb == 8
+    assert eng.kv_bits == 8 and eng.state.kc.dtype == torch.int8
+
+
+def test_engine_past_its_slot_limit_matches_jax_engine_teacher_forced(
+        monkeypatch, caplog):
+    """More slots than ``fused_slot_limit(8)``, the int8 cache asked for:
+    the JAX Engine leaves its kernel for its XLA step on a bf16 cache, and
+    the port's serves on the bf16 cache (K2 on the card) and says so;
+    both take 40 requests on 33 slots, 7 of them queued.  The XLA step
+    keeps its residual in bf16 where the kernel and the port keep f32, so
+    near-tied draws part more often than against the fused kernel: the
+    port's own draws (all four codebooks of a slot-step) equal the
+    reference's on 0.762 of 244 slot-steps (against the fused kernel at 2
+    slots on the same 40 requests: 0.818 of 121; with the port's seeds
+    moved, so its noise is not the reference's: 0.0), hence 0.7."""
+    S = tb.fused_slot_limit(8) + 1
+    with caplog.at_level("WARNING", logger=tb.__name__):
+        jeng, eng = _teacher_forced_parity(
+            monkeypatch, 40, min_agree=0.7, max_num_seqs=S, chunk_steps=4,
+            chunk_steps_max=4)
+    assert not jeng._fused and jeng._kvb == 0
+    assert eng.kv_bits == 0 and eng.state.kc.dtype == torch.bfloat16
+    assert eng.state.kc.shape[1] == S and eng.stats["peak_slots"] == S
+    assert sum("bf16 cache" in r.getMessage() for r in caplog.records) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -455,13 +496,30 @@ def test_prompt_bucket_validation(model):
 
 
 def test_slot_limit_follows_the_cache(model):
+    """Up to its tier's limit an engine keeps the cache it was asked for;
+    past it, it serves as the reference does: the bf16 cache and bf16
+    weights (the reference's XLA step), whatever tier was asked for."""
     cfg, gp, ep = model
-    assert tb.fused_slot_limit(8) == 32 and tb.fused_slot_limit(0) == 16
+    assert (tb.fused_slot_limit(8), tb.fused_slot_limit(0),
+            tb.fused_slot_limit(4)) == (32, 16, 64)
     wide = tb.EngineConfig(max_num_seqs=32, max_prompt_len=8,
                            max_new_tokens=8)
-    assert tb.Engine(cfg, wide, gp, ep).state.kc.shape[1] == 32
-    with pytest.raises(ValueError, match="slots"):
-        tb.Engine(cfg, wide, gp, ep, kv_bits=0)
+    eng = tb.Engine(cfg, wide, gp, ep)
+    assert eng.kv_bits == 8 and eng.state.kc.shape[1] == 32
+    assert eng.state.kc.dtype == torch.int8
+    eng = tb.Engine(cfg, wide, gp, ep, kv_bits=0)
+    assert eng.kv_bits == 0 and eng.state.kc.dtype == torch.bfloat16
+    past = tb.EngineConfig(max_num_seqs=33, max_prompt_len=8,
+                           max_new_tokens=8)
+    qcfg = port_config(FUSED_CFG)  # a geometry that takes int8 weights
+    gen = torch.Generator().manual_seed(0)
+    qgp, qep = tl.init_params(gen, qcfg), te.init_params(gen, qcfg)
+    eng = tb.Engine(qcfg, past, qgp, qep,
+                    packed=ds.pack_weights(qgp, qcfg, weight_bits=8))
+    assert eng.kv_bits == 0 and eng.state.kc.dtype == torch.bfloat16
+    assert tuple(eng.state.kc.shape[1:3]) == (33, 16)
+    assert ds.weight_bits_of(eng.packed, qcfg) == 0
+    assert len(eng.generate([_req(qcfg, "p0", n=5, max_new=4, seed=1)])) == 1
     with pytest.raises(ValueError, match="kv_bits"):
         tb.Engine(cfg, tb.EngineConfig(max_num_seqs=2), gp, ep, kv_bits=4)
 

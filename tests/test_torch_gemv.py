@@ -149,8 +149,12 @@ def test_gemv_rejects_what_the_kernel_does_not_take():
         ds.gemv(x, None, w, None, 0, torch.zeros((2, 8)), ds.GEMV_NONE,
                 False)
     with pytest.raises(ValueError, match="rows"):
-        ds.gemv(torch.zeros((65, 64)), None, w, None, 0,
-                torch.zeros((65, 16)), ds.GEMV_NONE, False)
+        ds.gemv(torch.zeros((0, 64)), None, w, None, 0,
+                torch.zeros((0, 16)), ds.GEMV_NONE, False)
+    # past 64 rows too: the kernel takes its rows in groups of 32
+    wide = ds.gemv(torch.ones((65, 64)), None, w, None, 0,
+                   torch.ones((65, 16)), ds.GEMV_NONE, False)
+    assert torch.equal(wide, torch.zeros((65, 16)))
     with pytest.raises(ValueError, match="K"):        # w of another width
         ds.gemv(x, None, w[:, :32].contiguous(), None, 0, out,
                 ds.GEMV_NONE, False)

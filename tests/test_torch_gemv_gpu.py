@@ -15,7 +15,8 @@ the rms or silu prologue leaves within a relative max(2^-14, 2 K 2^-24) of a
 bf16 rounding tie, plus 2^-23 (|out| + |y|) where the gemv adds into out.
 Planted faults on the plain side must exceed it: one 32-value step of the
 weights dropped, and one group's scales taken from the next group.  A row's
-result must not depend on the batch, bit for bit, up to 64 rows.
+result must not depend on the batch, bit for bit: rows of a 128-row launch
+(four row groups of 32) equal the same rows launched at 64 rows and at 1.
 """
 
 import pytest
@@ -33,7 +34,7 @@ FULL_GROUP = {0: 0, 8: 768, 4: 128}
 # ragged widths: N not a multiple of 8 columns a tile, K not of 32 (bf16;
 # the quantized tiers need K % group == 0, group % 32 == 0)
 RAGGED = {0: (400, 200, 0), 8: (400, 192, 64), 4: (400, 192, 32)}
-ROWS = [1, 7, 8, 16, 17, 32, 33, 64]
+ROWS = [1, 7, 8, 16, 17, 32, 33, 64, 96]
 MODES = {"none": ds.GEMV_NONE, "rms": ds.GEMV_RMS, "silu": ds.GEMV_SILU}
 TIERS = [0, 8, 4]
 
@@ -146,10 +147,11 @@ def test_bound_rejects_a_group_scale_of_the_next_group(cuda, bits, shape):
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("bits", TIERS)
 def test_row_result_does_not_depend_on_the_batch(cuda, bits, mode):
-    """Rows of a 64-row launch (two row halves) equal the same rows
-    launched alone and among 16, bit for bit."""
+    """Rows of a 128-row launch (four row groups of 32) equal the same rows
+    launched alone, among 16 and among 64, bit for bit, the 64-row slices
+    crossing the group boundaries and the 64-row one."""
     N, K, group = RAGGED[bits]
-    x, lnw, w, scale, out = _case(cuda, 64, N, K, MODES[mode], bits, group)
+    x, lnw, w, scale, out = _case(cuda, 128, N, K, MODES[mode], bits, group)
 
     def run(sl):
         o = out[sl].clone()
@@ -158,10 +160,11 @@ def test_row_result_does_not_depend_on_the_batch(cuda, bits, mode):
         torch.cuda.synchronize()
         return o
 
-    y64 = run(slice(0, 64))
-    for sl in (slice(0, 1), slice(40, 41), slice(63, 64), slice(0, 16),
-               slice(24, 40), slice(48, 64)):
-        assert torch.equal(run(sl), y64[sl])
+    y128 = run(slice(0, 128))
+    for sl in (slice(0, 1), slice(40, 41), slice(63, 64), slice(64, 65),
+               slice(127, 128), slice(0, 16), slice(24, 40), slice(56, 72),
+               slice(0, 64), slice(64, 128), slice(17, 81), slice(40, 104)):
+        assert torch.equal(run(sl), y128[sl])
 
 
 @pytest.mark.gpu

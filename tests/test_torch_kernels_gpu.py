@@ -21,8 +21,11 @@ on its unpacked values.  With quantized weights both sides multiply the
 same integers by the same scales; the kernel adds each warp's share of a
 group's sum (its tensor-core products of the group's steps in its slice of
 K) times the scale where the plain version adds each group's sum times the
-scale, f32 both, so the hidden's tolerance stays 0.05.  A row's
-result must not depend on the batch it ran in, bit for bit, up to 64 rows.
+scale, f32 both, so the hidden's tolerance stays 0.05.  The step takes
+any batch width the reference takes: every tier is held to the plain
+version at 65, 96, 128 and 256 rows, and a row's result must not depend
+on the batch it ran in, bit for bit: rows of a 128-row launch equal the
+same rows launched at 64 rows and at 1.
 """
 
 import pytest
@@ -310,15 +313,28 @@ def test_tier_matches_plain_at_full_width(cuda, wbits, kvbits, per_slot,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("wbits,kvbits,per_slot,name", TIERS,
-                         ids=[t[3] for t in TIERS])
+@pytest.mark.parametrize("B", [65, 96, 128, 256])
+@pytest.mark.parametrize("wbits,kvbits,per_slot,name", TIERS_ALL,
+                         ids=[t[3] for t in TIERS_ALL])
+def test_wide_batch_matches_plain(cuda, wbits, kvbits, per_slot, name, B):
+    """Every tier past 64 rows (the gemv's third to eighth row groups of
+    32, the attention grid's B) against the plain version, at the
+    tolerances of the narrower cases."""
+    _tier_case(QUANT_GEOMETRIES["pairs"], B, 64, cuda, wbits, kvbits,
+               per_slot, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits,kvbits,per_slot,name", TIERS_ALL,
+                         ids=[t[3] for t in TIERS_ALL])
 def test_tier_row_result_does_not_depend_on_the_batch(cuda, wbits, kvbits,
                                                       per_slot, name):
-    """Rows of a 64-row launch (two row halves of the gemv) equal the same
-    rows launched alone, among 16 and among 32, bit for bit."""
+    """Rows of a 128-row launch (four row groups of the gemv) equal the same
+    rows launched alone, among 16, among 32 and among 64, bit for bit; the
+    slices cross the 32-row group boundaries and the 64-row one."""
     cfg = QUANT_GEOMETRIES["pairs"]
     _, packed, kc, vc, emb, cur_arg, cur, lo = _tier_inputs(
-        cfg, 64, 64, cuda, wbits, kvbits, per_slot)
+        cfg, 128, 64, cuda, wbits, kvbits, per_slot)
     pos = cur - lo
 
     def run(sl):
@@ -328,12 +344,14 @@ def test_tier_row_result_does_not_depend_on_the_batch(cuda, wbits, kvbits,
         torch.cuda.synchronize()
         return x, k, v
 
-    x64, k64, v64 = run(slice(0, 64))
-    for sl in (slice(0, 1), slice(40, 41), slice(63, 64), slice(30, 46),
-               slice(0, 32), slice(32, 64), slice(20, 60)):
+    x128, k128, v128 = run(slice(0, 128))
+    for sl in (slice(0, 1), slice(40, 41), slice(63, 64), slice(64, 65),
+               slice(100, 101), slice(127, 128), slice(30, 46),
+               slice(0, 32), slice(32, 64), slice(20, 60), slice(56, 72),
+               slice(0, 64), slice(64, 128), slice(32, 96), slice(17, 81)):
         x, k, v = run(sl)
-        assert torch.equal(x, x64[sl])
-        assert torch.equal(k, k64[:, sl]) and torch.equal(v, v64[:, sl])
+        assert torch.equal(x, x128[sl])
+        assert torch.equal(k, k128[:, sl]) and torch.equal(v, v128[:, sl])
 
 
 @pytest.mark.gpu
@@ -562,8 +580,14 @@ def test_variant_wrapper_errors(cuda):
     assert torch.isfinite(x33).all()
     _, packed65, kc65, vc65, emb65 = _inputs(cfg, 65, 16, cuda)
     lo65 = torch.zeros(65, dtype=torch.long, device=cuda)
-    with pytest.raises(ValueError, match="1 to 64 rows"):
-        k1.decode_step(packed65, emb65, kc65, vc65, 3, lo65, lo65, cfg)
+    before = k1.decode_step.launches
+    x65 = k1.decode_step(packed65, emb65, kc65, vc65, 3, lo65, lo65, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x65).all()
+    assert k1.decode_step.launches == before + 1
+    with pytest.raises(ValueError, match="rows"):
+        k1.decode_step(packed65, emb65[:0], kc65[:, :0].contiguous(),
+                       vc65[:, :0].contiguous(), 3, lo65[:0], lo65[:0], cfg)
 
 
 @pytest.mark.gpu
@@ -614,8 +638,18 @@ def test_attend_is_the_attention_of_the_step(cuda, geom, kv_bits):
     """``decode_step_attend`` equals the attention of a whole-step launch,
     bit for bit: one layer whose wo is the identity and whose down is zero
     gives x + bf16(o) exactly, and the appended cache rows."""
-    cfg = ATTEND_GEOMETRIES[geom]
-    B, T = 8, 256
+    _attend_case(cuda, ATTEND_GEOMETRIES[geom], kv_bits, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_attend_at_96_rows(cuda, kv_bits):
+    """The same at 96 rows on the full model's heads: gridDim.z 96."""
+    _attend_case(cuda, ATTEND_GEOMETRIES["12 heads"], kv_bits, 96)
+
+
+def _attend_case(cuda, cfg, kv_bits, B):
+    T = 256
     D = cfg.hidden_size
     params, packed, kc, vc, emb = _inputs(cfg, B, T, cuda)
     packed["wo"] = torch.eye(D, device=cuda, dtype=torch.bfloat16)[None]

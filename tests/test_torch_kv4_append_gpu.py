@@ -7,7 +7,7 @@ on the CPU copy of the same inputs (the same cos and sin, made once): there
 every torch operation rounds as IEEE float32 does, whereas on the card
 torch divides by a Python scalar through its reciprocal, which the kernel
 must not do.  Checked at the full model's heads (12 of 64), at 8 heads of
-64 and at 2 heads of 128, on 1, 8, 16, 33 and 64 rows, with rows that are
+64 and at 2 heads of 128, on 1, 8, 16, 33, 64 and 96 rows, with rows that are
 not live (a position past the cache, a window with no key, a negative
 position): those rows, and every row but the appended ones, stay as they
 were; the appended rows' pad is zero although the cache held random bytes
@@ -121,7 +121,7 @@ def _plain(case, cfg, fault=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("geom", sorted(GEOMETRIES))
-@pytest.mark.parametrize("B", [1, 8, 16, 33, 64])
+@pytest.mark.parametrize("B", [1, 8, 16, 33, 64, 96])
 def test_appended_rows_equal_the_plain_bytes(cuda, geom, B):
     cfg = GEOMETRIES[geom]
     case = _case(cfg, B, 80, B, cuda)

@@ -238,15 +238,17 @@ def test_engine_teacher_forced_on_quantized_tiers(models, monkeypatch,
 
 def test_engine_64_slots_on_the_int4_cache(models):
     """The port's counterpart of test_engine_64_slot_kv4_config: 64 slots
-    exist only with ``kv_bits=4``; 40 requests occupy more than 32 of them
-    at once and every one finishes at its length."""
+    keep a quantized cache only with ``kv_bits=4`` (asked for kv8 or bf16,
+    they serve on the bf16 cache, as the reference's engine past its slot
+    limit does); 40 requests occupy more than 32 of them at once and every
+    one finishes at its length."""
     _, _, tgp, tep = models
     assert [tb.fused_slot_limit(b) for b in (0, 8, 4)] == [16, 32, 64]
     ecfg = tb.EngineConfig(max_num_seqs=64, max_prompt_len=16,
                            max_new_tokens=8, chunk_steps=4)
     for kv_bits in (8, 0):
-        with pytest.raises(ValueError, match="slots"):
-            tb.Engine(PCFG4, ecfg, tgp, tep, kv_bits=kv_bits)
+        past = tb.Engine(PCFG4, ecfg, tgp, tep, kv_bits=kv_bits)
+        assert past.kv_bits == 0 and past.state.kc.dtype == torch.bfloat16
     eng = tb.Engine(PCFG4, ecfg, tgp, tep, kv_bits=4,
                     packed=ds.pack_weights(tgp, PCFG4, weight_bits=8))
     assert eng.state.kc.shape == (2, 64, 24, HD // 2 + kv_quant.KV_PAD)
