@@ -81,6 +81,7 @@ from .ops import stft as stft_ops
 from .ops.decode_step import pack_weights
 from .utils import dl as dl_utils
 from .utils import io as io_utils
+from .utils import profiling
 from .weights import resolve_device, to_device
 
 
@@ -436,17 +437,18 @@ class Chat:
             params_infer_code)
         if stream:
             return res_gen
-        if refine_text_only:
-            return next(res_gen)
-        stripped = []
-        thr = np.float32(1e-5)
-        for wavs in res_gen:
-            for wav in wavs:
-                stripped.append(wav[np.abs(wav) > thr])
-        if split_text:
-            return [np.concatenate(stripped) if stripped else
-                    np.array([], np.float32)]
-        return stripped
+        with profiling.span("chat.infer", rows=len(text)):
+            if refine_text_only:
+                return next(res_gen)
+            stripped = []
+            thr = np.float32(1e-5)
+            for wavs in res_gen:
+                for wav in wavs:
+                    stripped.append(wav[np.abs(wav) > thr])
+            if split_text:
+                return [np.concatenate(stripped) if stripped else
+                        np.array([], np.float32)]
+            return stripped
 
     def _infer(self, text, stream, lang, skip_refine_text, refine_text_only,
                use_decoder, do_text_normalization, do_homophone_replacement,
@@ -728,7 +730,9 @@ class Chat:
             self._dvae("use_decoder=False")
         elif self._pipelined():
             return self._pipelined_wavs(batch, params)
-        result = next(self._infer_code(batch, False, use_decoder, params))
+        with profiling.span("chat.code_pass", rows=len(batch)):
+            result = next(self._infer_code(batch, False, use_decoder,
+                                           params))
         wavs = self._decode_to_wavs(result, use_decoder)
         result.destroy()
         return wavs
@@ -980,11 +984,14 @@ class Chat:
         Zeroes each row's tail before the conv stacks (zero features are not
         inert through norm and conv) and again on the waveform."""
         cfg = self.config
-        tmask = torch.arange(hid.shape[1], device=hid.device)[None, :] < end[:, None]
-        mel = dvae_mod.decode_from_hidden(self.decoder_params,
-                                          hid * tmask[..., None], cfg.decoder)
-        wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
-        return self._zero_tail(wav, end)
+        with profiling.span("audio.decoder"):
+            tmask = (torch.arange(hid.shape[1], device=hid.device)[None, :]
+                     < end[:, None])
+            mel = dvae_mod.decode_from_hidden(
+                self.decoder_params, hid * tmask[..., None], cfg.decoder)
+        with profiling.span("audio.vocos"):
+            wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
+            return self._zero_tail(wav, end)
 
     def _zero_tail(self, wav: torch.Tensor, end: torch.Tensor
                    ) -> torch.Tensor:
@@ -996,6 +1003,17 @@ class Chat:
 
     def _decode_to_wavs(self, result: GenerationOutputs, use_decoder: bool
                         ) -> np.ndarray:
+        """The rows' audio on the host, (B, N) float32: the hiddens through
+        the mel decoder and Vocos, or with ``use_decoder=False`` the codes
+        through the DVAE.  One ``chat.decode_to_wavs`` span (``frames``:
+        the rows' kept steps), its parts ``audio.decoder``,
+        ``audio.vocos`` and ``audio.to_host``."""
+        with profiling.span("chat.decode_to_wavs", rows=len(result.ids),
+                            frames=sum(len(x) for x in result.ids)):
+            return self._decode_rows(result, use_decoder)
+
+    def _decode_rows(self, result: GenerationOutputs, use_decoder: bool
+                     ) -> np.ndarray:
         cfg = self.config
         bucket = cfg.runtime.decode_bucket // 4 or 1
         if use_decoder:
@@ -1009,7 +1027,9 @@ class Chat:
             hid = hid[:, :n_max]
             hid = torch.nn.functional.pad(
                 hid, (0, 0, 0, _round_up(n_max, bucket) - n_max))
-            return self._device_decode(hid, result.end_dev).cpu().numpy()
+            wav = self._device_decode(hid, result.end_dev)
+            with profiling.span("audio.to_host"):
+                return wav.cpu().numpy()
         # codes -> GFSQ embed -> the DVAE's decoder -> Vocos; each row's
         # bucket-padding tail is zeroed on the waveform (zero codes are not
         # silence)
@@ -1021,12 +1041,17 @@ class Chat:
                           cfg.gpt.num_vq), np.int32)
         for i, ids in enumerate(items):
             codes[i, :ids.shape[0]] = ids
-        mel = dvae_mod.decode_from_indices(
-            self.dvae_params, torch.from_numpy(codes).to(self.device),
-            cfg.dvae)
-        wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
-        ends = torch.as_tensor([x.shape[0] for x in items], device=wav.device)
-        return self._zero_tail(wav, ends).cpu().numpy()
+        with profiling.span("audio.decoder"):
+            mel = dvae_mod.decode_from_indices(
+                self.dvae_params, torch.from_numpy(codes).to(self.device),
+                cfg.dvae)
+        with profiling.span("audio.vocos"):
+            wav = vocos_mod.decode(self.vocos_params, mel, cfg.vocos)
+            ends = torch.as_tensor([x.shape[0] for x in items],
+                                   device=wav.device)
+            wav = self._zero_tail(wav, ends)
+        with profiling.span("audio.to_host"):
+            return wav.cpu().numpy()
 
     # -- generation passes ---------------------------------------------
 

@@ -84,6 +84,7 @@ from ..ops import decode_step as step_mod
 from ..ops import sampling, threefry
 from ..ops.kv_quant import kv_quantizer, row_width
 from ..parallel import mesh as mesh_mod
+from ..utils import profiling
 from .generate import REP_WINDOW, GenerationOutputs
 
 # steps whose sampling noise is drawn in one go (bounds its memory: a block
@@ -395,8 +396,12 @@ class Engine:
         self._acc_ids: List[np.ndarray] = [Z] * ecfg.max_num_seqs
         self._entry_steps = [0] * ecfg.max_num_seqs
         self._host_rng = np.random.default_rng(seed ^ 0x5EED)
+        # recomputed_tokens: prompt tokens prefilled again to resume
+        # requests preempted by recompute (their prompts and the tokens
+        # generated before the preemption)
         self.stats = {"tokens_generated": 0, "requests_finished": 0,
-                      "steps": 0, "steps_launched": 0, "prefills": 0}
+                      "steps": 0, "steps_launched": 0, "prefills": 0,
+                      "recomputed_tokens": 0}
         self._lat_queue: collections.deque = collections.deque(maxlen=512)
         self._lat_first: collections.deque = collections.deque(maxlen=512)
         self._last_log = time.monotonic()
@@ -491,19 +496,29 @@ class Engine:
         self.reset_stats()
 
     def step(self, long_chunk: bool = False) -> List[EngineOutput]:
+        """Admit, run one decode chunk and harvest; one ``engine.step``
+        span, its parts ``engine.preempt``, ``engine.admit`` (a
+        ``engine.prefill`` a wave), ``engine.dispatch``, ``engine.ingest``
+        and ``engine.harvest``."""
+        with profiling.span("engine.step"):
+            return self._step(long_chunk)
+
+    def _step(self, long_chunk: bool) -> List[EngineOutput]:
         if self._spec is not None and all(r is None for r in self.slots):
             # the chunk enqueued ahead outlived its batch: it changed
             # nothing; drop its status so this step admits new work
             self._spec = None
         if self._spec is None:
-            self._maybe_preempt()
-            self._admit()
+            with profiling.span("engine.preempt"):
+                self._maybe_preempt()
+            with profiling.span("engine.admit"):
+                self._admit()
             occ = sum(r is not None for r in self.slots)
             self.stats["peak_slots"] = max(
                 self.stats.get("peak_slots", 0), occ)
             if not occ:
                 return []
-            pending = self._dispatch_chunk(long_chunk, inflight=0)
+            pending = self._dispatch(long_chunk, inflight=0)
         else:
             pending = self._spec
             self._spec = None
@@ -524,11 +539,21 @@ class Engine:
                             and r.on_tokens is not None
                             and not r._first_done for r in self.slots)):
             # None when the in-flight chunk already covers every slot's end
-            self._spec = self._dispatch_chunk(long_chunk, inflight=pending[2])
-        self._ingest(*pending)  # the one host read of the chunk
+            self._spec = self._dispatch(long_chunk, inflight=pending[2])
+        with profiling.span("engine.ingest"):
+            self._ingest(*pending)  # the one host read of the chunk
         # a rank's live steps are a prefix of the chunk: the longest counts
         self.stats["steps"] += int(self._status[_RAN].max())
-        return self._harvest()
+        with profiling.span("engine.harvest") as sp:
+            outs = self._harvest()
+            sp.set(rids=[o.request_id for o in outs])
+        return outs
+
+    def _dispatch(self, long_chunk: bool, inflight: int):
+        with profiling.span("engine.dispatch") as sp:
+            pending = self._dispatch_chunk(long_chunk, inflight)
+            sp.set(steps=0 if pending is None else pending[2])
+        return pending
 
     # -- the decode chunk ------------------------------------------------
 
@@ -805,7 +830,15 @@ class Engine:
             self.waiting.appendleft(r)
         for Tpb in sorted({b for _, _, b in wave}):
             group = [(s, r) for s, r, b in wave if b == Tpb]
-            self._prefill_wave(Tpb, group)
+            tokens = [r.ids.shape[0] + r.resume_len for _, r in group]
+            resumed = [n for n, (_, r) in zip(tokens, group)
+                       if r._resume_ids is not None]
+            self.stats["recomputed_tokens"] += sum(resumed)
+            with profiling.span(
+                    "engine.prefill", rids=[r.request_id for _, r in group],
+                    rows=len(group), tokens=sum(tokens),
+                    resumed_rows=len(resumed), resumed_tokens=sum(resumed)):
+                self._prefill_wave(Tpb, group)
             for s, req in group:
                 self.slots[s] = req
                 self._slot_chunks[s] = 0

@@ -25,6 +25,12 @@ the host as one non-blocking copy into pinned memory with an event
 enqueued before the host waits on chunk k's copy (the reference's
 dispatch-ahead); while it enqueues them, the host stops early once chunk
 k's copy has landed and says every row finished.
+
+Under a profiler (``utils/profiling.span``) a call records
+``generator.prefill``, a ``generator.steps`` span around each stretch of
+steps enqueued between two host reads (each step's ``decode_step``
+inside), ``generator.sync`` around the host read of the finished flags
+and ``generator.materialize`` around the final outputs' reads.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..models import llama
 from ..ops import decode_step as k1
 from ..ops import sampling
 from ..ops.kv_quant import kv_quantizer
+from ..utils import profiling
 from .streaming import HostCopy
 
 REP_WINDOW = 16  # trailing-token window of the repetition penalty
@@ -280,8 +287,9 @@ class Generator:
         # still stops at max_new and the rounded tail is never written
         n_buf = _round_up(req.max_new, 8)
         Tbuf = T0 + n_buf
-        hidden, kc, vc, ids0, attn_t = self._prefill(req, ids, attn, tmask,
-                                                     T0, Tbuf)
+        with profiling.span("generator.prefill", rows=B):
+            hidden, kc, vc, ids0, attn_t = self._prefill(req, ids, attn,
+                                                         tmask, T0, Tbuf)
         ids_buf = torch.zeros((B, Tbuf, num_vq), dtype=torch.long, device=dev)
         ids_buf[:, :T0] = ids0
         # first readable cache slot per row: left padding never changes, so
@@ -313,60 +321,69 @@ class Generator:
 
         def run_to(hi, stop):
             """Enqueue decode steps until ``st.step == hi``; at every
-            SYNC_EVERY-th step leave early when ``stop()`` says so."""
+            SYNC_EVERY-th step leave early when ``stop()`` says so.  Each
+            stretch between two such checks is one ``generator.steps``
+            span."""
             while st.step < hi:
                 if st.step % SYNC_EVERY == 0 and st.step and stop():
                     return
-                step, cur = st.step, st.cur
-                if req.infer_text:
-                    logits = embed_mod.head_text(self.embed_params, st.hidden)
-                else:
-                    logits = embed_mod.head_code(
-                        self.embed_params, st.hidden).reshape(
-                            B * num_vq, cfg.num_audio_tokens)
-                start = min(max(cur - REP_WINDOW, 0), Tbuf - REP_WINDOW)
-                win = ids_buf[:, start:start + REP_WINDOW]
-                wpos = start + wpos_base
-                wmask = (wpos >= T0) & (wpos < cur)
-                if req.infer_text:
-                    win_rows = win[:, :, 0]
-                else:
-                    win_rows = win.transpose(1, 2).reshape(B * num_vq,
-                                                           REP_WINDOW)
-                wmask_rows = wmask[None].expand(win_rows.shape[0], REP_WINDOW)
-                ids_next = sampling.sample(
-                    logits, sp, win_rows, wmask_rows, step, eos,
-                    max_penalized,
-                    noise=None if req.noise is None else req.noise(step),
-                    generator=gen)
-                if req.infer_text:
-                    token = ids_next[:, None].expand(B, num_vq)
-                    eos_hit = ids_next == eos
-                else:
-                    token = ids_next.reshape(B, num_vq)
-                    eos_hit = (token == eos).any(-1)
-                # finish and end_idx are new tensors each step (a chunk's
-                # snapshot keeps its own); the buffers are written in place
-                st.finish = st.finish | eos_hit
-                ids_buf[:, cur] = token
-                hiddens[:, step] = st.hidden
-                st.end_idx = st.end_idx + (~st.finish).long()
+                n = min(hi, (st.step // SYNC_EVERY + 1) * SYNC_EVERY)
+                with profiling.span("generator.steps", steps=n - st.step):
+                    while st.step < n:
+                        one_step()
 
-                emb = (embed_mod.embed_text_step(self.embed_params,
-                                                 token[:, 0])
-                       if req.infer_text
-                       else embed_mod.embed_code_step(self.embed_params,
-                                                      token))
-                x_out = k1.decode_step(self.packed, emb, kc, vc, cur, lo,
-                                       st.pos_next, cfg)
-                st.hidden = llama.rms_norm(x_out, self.gpt_params["norm"],
-                                           cfg.rms_norm_eps)
-                st.cur += 1
-                st.pos_next = st.pos_next + 1
-                st.step += 1
+        def one_step():
+            step, cur = st.step, st.cur
+            if req.infer_text:
+                logits = embed_mod.head_text(self.embed_params, st.hidden)
+            else:
+                logits = embed_mod.head_code(
+                    self.embed_params, st.hidden).reshape(
+                        B * num_vq, cfg.num_audio_tokens)
+            start = min(max(cur - REP_WINDOW, 0), Tbuf - REP_WINDOW)
+            win = ids_buf[:, start:start + REP_WINDOW]
+            wpos = start + wpos_base
+            wmask = (wpos >= T0) & (wpos < cur)
+            if req.infer_text:
+                win_rows = win[:, :, 0]
+            else:
+                win_rows = win.transpose(1, 2).reshape(B * num_vq,
+                                                       REP_WINDOW)
+            wmask_rows = wmask[None].expand(win_rows.shape[0], REP_WINDOW)
+            ids_next = sampling.sample(
+                logits, sp, win_rows, wmask_rows, step, eos,
+                max_penalized,
+                noise=None if req.noise is None else req.noise(step),
+                generator=gen)
+            if req.infer_text:
+                token = ids_next[:, None].expand(B, num_vq)
+                eos_hit = ids_next == eos
+            else:
+                token = ids_next.reshape(B, num_vq)
+                eos_hit = (token == eos).any(-1)
+            # finish and end_idx are new tensors each step (a chunk's
+            # snapshot keeps its own); the buffers are written in place
+            st.finish = st.finish | eos_hit
+            ids_buf[:, cur] = token
+            hiddens[:, step] = st.hidden
+            st.end_idx = st.end_idx + (~st.finish).long()
+
+            emb = (embed_mod.embed_text_step(self.embed_params,
+                                             token[:, 0])
+                   if req.infer_text
+                   else embed_mod.embed_code_step(self.embed_params,
+                                                  token))
+            x_out = k1.decode_step(self.packed, emb, kc, vc, cur, lo,
+                                   st.pos_next, cfg)
+            st.hidden = llama.rms_norm(x_out, self.gpt_params["norm"],
+                                       cfg.rms_norm_eps)
+            st.cur += 1
+            st.pos_next = st.pos_next + 1
+            st.step += 1
 
         def sync_stop():
-            stop = bool(st.finish.all()) or context.get()
+            with profiling.span("generator.sync"):
+                stop = bool(st.finish.all()) or context.get()
             if req.on_progress is not None:
                 req.on_progress(st.step)
             return stop
@@ -434,13 +451,14 @@ class Generator:
                         chunk.end_idx, chunk.steps, partial=True)
 
     def _materialize(self, req, ids_buf, T0, end_idx, finish, hiddens, steps):
-        end = end_idx.cpu().numpy()
-        if req.on_progress is not None:
-            req.on_progress(steps)
-        fin = finish.cpu().numpy()
-        gen_ids = ids_buf[:, T0:].cpu().numpy().astype(np.int32)
-        out = _outputs(req, gen_ids, end, fin, hiddens, end_idx, steps)
-        return out, bool((fin & (end == 0)).any())
+        with profiling.span("generator.materialize"):
+            end = end_idx.cpu().numpy()
+            if req.on_progress is not None:
+                req.on_progress(steps)
+            fin = finish.cpu().numpy()
+            gen_ids = ids_buf[:, T0:].cpu().numpy().astype(np.int32)
+            out = _outputs(req, gen_ids, end, fin, hiddens, end_idx, steps)
+            return out, bool((fin & (end == 0)).any())
 
 
 def _outputs(req: GenerateRequest, gen_ids: np.ndarray, end: np.ndarray,

@@ -35,7 +35,9 @@ combinations are three gemv instantiations times three attention ones.
   (``csrc/decode_step.cu``) and counts the launch under its variant's name
   in ``decode_step.variant_launches`` (``decode_step.launches`` is their
   sum); a CPU tensor takes the plain version.  There is no fallback from
-  one to the other.
+  one to the other.  Each call, of every variant and of
+  :data:`decode_step_tp`, is one ``decode_step`` span
+  (``utils/profiling.py``).
 * :data:`gemv` launches one of the step's gemvs on its own (the kernel's
   entry for tests and timing, counted in ``decode_step.gemv_launches``);
   :func:`gemv_plain` is its plain version and :func:`gemv_tolerance` the
@@ -87,6 +89,7 @@ from typing import Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ._build import CudaLibrary
 from .kv_quant import (KV_PAD, kv4_packable, kv_quantizer, row_scales,
                        row_width, unpack_nibbles)
@@ -823,6 +826,12 @@ class DecodeStep:
         rank.  CPU tensors take :func:`decode_step_plain` with ``heads``
         and ``all_reduce``; a CUDA step counts one launch under its variant
         in ``tp_launches``."""
+        with profiling.span("decode_step"):
+            return self._tp(packed, emb, k_cache, v_cache, cur, lo,
+                            positions, cfg, heads, all_reduce)
+
+    def _tp(self, packed, emb, k_cache, v_cache, cur, lo, positions, cfg,
+            heads, all_reduce):
         if emb.device.type == "cpu":
             return decode_step_plain(packed, emb, k_cache, v_cache, cur, lo,
                                      positions, cfg, heads, all_reduce)
@@ -895,6 +904,11 @@ class DecodeStep:
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cur: Union[int, torch.Tensor], lo: torch.Tensor,
                  positions: torch.Tensor, cfg) -> torch.Tensor:
+        with profiling.span("decode_step"):
+            return self._step(packed, emb, k_cache, v_cache, cur, lo,
+                              positions, cfg)
+
+    def _step(self, packed, emb, k_cache, v_cache, cur, lo, positions, cfg):
         if emb.device.type == "cpu":
             return decode_step_plain(packed, emb, k_cache, v_cache, cur, lo,
                                      positions, cfg)

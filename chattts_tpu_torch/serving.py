@@ -23,6 +23,12 @@ Every blocking wait of a request thread has a limit (``timeout``): a
 waiter that hears nothing for that long gets a ``TimeoutError`` and its
 request is aborted, so a stalled engine fails its callers instead of
 hanging them.
+
+Under a profiler (``utils/profiling.span``) the engine thread records
+``service.lock`` (waiting for the mutex) and ``service.step`` (its pass
+over the engines), a ``synthesize`` thread ``service.synthesize`` around
+its request, with ``service.wait`` while it is blocked on its mailbox
+and its own vocode's ``chat.decode_to_wavs``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from .core import Chat
 from .engine.batching import EngineRequest, outputs_to_generation
 from .engine.streaming import EmissionPacer
 from .models.speaker import Speaker
+from .utils import profiling
 from .utils.logger import get_logger
 
 logger = get_logger("chattts_tpu_torch.serving")
@@ -204,41 +211,52 @@ class TTSService:
                 # two chunk quanta.  Costs the first racer ~4 ms; the
                 # steady-state busy loop never sleeps.
                 time.sleep(0.004)
-            busy = False
-            with self._mu:
-                for eng in self._engines():
-                    if not eng.has_unfinished():
-                        continue
-                    busy = True
-                    try:
-                        outs = eng.step()
-                    except Exception:  # noqa: BLE001 - a dead engine would
-                        # leave its waiters blocked; fail THEM (and only
-                        # them - requests on the other, healthy engine keep
-                        # running: per-engine abort semantics, reference
-                        # llm_engine.py:365-371)
-                        logger.exception("engine step failed; failing its "
-                                         "in-flight requests")
-                        eng.interrupt()
-                        for rid in [r for r, (_, owner) in
-                                    self._pending.items() if owner is eng]:
-                            self._pending.pop(rid)[0].put(None)
-                        continue
-                    if not eng.ecfg.infer_text:
-                        self.max_concurrent_slots = max(
-                            self.max_concurrent_slots,
-                            eng.stats.get("peak_slots", 0))
-                    for o in outs:
-                        entry = self._pending.pop(o.request_id, None)
-                        if entry is not None:
-                            entry[0].put(o)
-                if not busy:
-                    self._work.clear()
+            with profiling.span("service.lock"):
+                self._mu.acquire()
+            try:
+                busy = self._step_pass()
+            finally:
+                self._mu.release()
             was_busy = busy
             # let a request thread waiting on the mutex (a submission, an
             # abort, stats) take it before the next step: the lock is not
             # fair, and this loop would otherwise re-take it at once
             time.sleep(0)
+
+    def _step_pass(self) -> bool:
+        """One pass of the engine thread over the engines, under the
+        mutex (a ``service.step`` span); whether any had work."""
+        busy = False
+        with profiling.span("service.step"):
+            for eng in self._engines():
+                if not eng.has_unfinished():
+                    continue
+                busy = True
+                try:
+                    outs = eng.step()
+                except Exception:  # noqa: BLE001 - a dead engine would
+                    # leave its waiters blocked; fail THEM (and only
+                    # them - requests on the other, healthy engine keep
+                    # running: per-engine abort semantics, reference
+                    # llm_engine.py:365-371)
+                    logger.exception("engine step failed; failing its "
+                                     "in-flight requests")
+                    eng.interrupt()
+                    for rid in [r for r, (_, owner) in
+                                self._pending.items() if owner is eng]:
+                        self._pending.pop(rid)[0].put(None)
+                    continue
+                if not eng.ecfg.infer_text:
+                    self.max_concurrent_slots = max(
+                        self.max_concurrent_slots,
+                        eng.stats.get("peak_slots", 0))
+                for o in outs:
+                    entry = self._pending.pop(o.request_id, None)
+                    if entry is not None:
+                        entry[0].put(o)
+            if not busy:
+                self._work.clear()
+        return busy
 
     def stats(self) -> dict:
         """Live service snapshot: per-engine occupancy + rolling latency
@@ -291,7 +309,8 @@ class TTSService:
         """The request's output; aborts it and raises TimeoutError when
         none arrives within ``self.timeout`` seconds."""
         try:
-            out = mailbox.get(timeout=self.timeout)
+            with profiling.span("service.wait", rids=(request_id,)):
+                out = mailbox.get(timeout=self.timeout)
         except queue.Empty:
             self.abort(request_id)
             raise TimeoutError(f"request {request_id} got no result in "
@@ -356,15 +375,19 @@ class TTSService:
         every other in-flight request."""
         c = self.chat
         params_code = params_code or Chat.InferCodeParams()
-        texts = [text] if skip_refine_text else self.refine(
-            [text], params_refine)
-        outs = self._results(c._engine_for_code(),
-                             self._code_reqs(texts, params_code))
-        # device-resident hiddens (when kept) feed the device decode path
-        wavs = c._decode_to_wavs(outputs_to_generation(outs),
-                                 use_decoder=True)
-        keep = [w[np.abs(w) > 1e-5] for w in wavs]
-        return (np.concatenate(keep) if keep else np.zeros((0,), np.float32))
+        with profiling.span("service.synthesize") as sp:
+            texts = [text] if skip_refine_text else self.refine(
+                [text], params_refine)
+            reqs = self._code_reqs(texts, params_code)
+            sp.set(rids=[r.request_id for r in reqs])
+            outs = self._results(c._engine_for_code(), reqs)
+            # device-resident hiddens (when kept) feed the device decode
+            # path
+            wavs = c._decode_to_wavs(outputs_to_generation(outs),
+                                     use_decoder=True)
+            keep = [w[np.abs(w) > 1e-5] for w in wavs]
+            return (np.concatenate(keep) if keep
+                    else np.zeros((0,), np.float32))
 
     def synthesize_stream(self, text: str,
                           params_code: Optional[Chat.InferCodeParams] = None,

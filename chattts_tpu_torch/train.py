@@ -32,11 +32,11 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from .config import GPTConfig
 from .models import embed as embed_mod
 from .models import llama
+from .utils import profiling
 from .weights import (map_tree, resolve_device, to_device, tree_leaves,
                       unflatten)
 
@@ -401,28 +401,28 @@ def make_train_step(cfg: GPTConfig, optimizer: Optimizer, mesh=None):
                           (state.gpt, state.embed))
         flat = tree_leaves(params)
         if mesh is None:
-            with record_function("train.forward"):
+            with profiling.span("train.forward"):
                 hidden = _forward_hidden(params[0], params[1], batch, cfg)
-            with record_function("train.loss"):
+            with profiling.span("train.loss"):
                 loss = loss_from_hidden(params[1], hidden, batch)
             norm = None
         else:
-            with record_function("train.forward"):
+            with profiling.span("train.forward"):
                 rows = _whole_rows(batch, mesh)
                 T, Ts = rows.attn_mask.shape[1], batch.attn_mask.shape[1]
                 start = mesh.coords["sp"] * Ts
                 hidden = _forward_hidden(params[0], params[1], batch, cfg,
                                          mesh, rows.attn_mask, start)
-            with record_function("train.loss"):
+            with profiling.span("train.loss"):
                 n = min(Ts, T - 1 - start)  # the last position predicts none
                 total, count = _nll_sum(params[1], hidden[:, :n], TrainBatch(
                     *(x[:, start + 1:start + 1 + n] for x in rows)), mesh)
                 for axis in ("dp", "sp"):
                     count = mesh.all_reduce(count.clone(), axis)
                 loss = total / count.clamp_min(1)
-        with record_function("train.backward"):
+        with profiling.span("train.backward"):
             grads = unflatten(params, torch.autograd.grad(loss, flat))
-        with record_function("train.optimizer"), torch.no_grad():
+        with profiling.span("train.optimizer"), torch.no_grad():
             if mesh is not None:
                 grads = _sum_over_data(grads, mesh)
                 loss = loss.detach().clone()

@@ -1,6 +1,6 @@
 """The port's small host pieces against ``chattts_tpu``'s: ``show_tqdm``
-and its progress hooks, ``top_p_mask``/``top_k_mask``, ``Metrics`` and
-``trace``, the ``urllib`` LLM client, ``Chat.load``'s signature, and the
+and its progress hooks, ``top_p_mask``/``top_k_mask``, ``trace``, the
+``urllib`` LLM client, ``Chat.load``'s signature, and the
 Embed heads' weight-norm fold on BF16 leaves.
 
 * ``show_tqdm=True`` reports up to ``max_new_token`` on the Generator and
@@ -10,8 +10,8 @@ Embed heads' weight-norm fold on BF16 leaves.
 * The masks equal HF's ``TopPLogitsWarper``/``TopKLogitsWarper`` and the
   JAX functions, with one value for all rows and one per row, and
   ``sample`` draws among the columns they keep.
-* ``Metrics`` gives the JAX one's snapshot on the same records; ``trace``
-  writes a Chrome trace on the CPU.
+* ``trace`` writes a Chrome trace on the CPU, with the spans a second
+  thread recorded in its region.
 * ``ChatClient`` posts the OpenAI chat-completions request to a stub
   server on 127.0.0.1 and reads its answer.
 * ``load`` takes the reference's positional order (``source, custom_path,
@@ -37,7 +37,6 @@ from transformers.generation import TopKLogitsWarper, TopPLogitsWarper
 from chattts_tpu.ops import sampling as jsampling
 from chattts_tpu.utils import io as jio
 from chattts_tpu.utils import llm as jllm
-from chattts_tpu.utils import profiling as jprof
 from chattts_tpu_torch import Chat as TChat
 from chattts_tpu_torch.engine import generate as tg
 from chattts_tpu_torch.ops import sampling as tsampling
@@ -210,44 +209,23 @@ def test_sample_draws_among_the_masks_survivors(rng):
 
 
 # ---------------------------------------------------------------------------
-# Metrics and trace
+# trace
 # ---------------------------------------------------------------------------
-
-
-def test_metrics_match_jax():
-    records = [("steps", (40, 4)), ("ttfa", 0.31), ("steps", (8, 1)),
-               ("ttfa", 0.12), ("ttfa", 0.5), ("seq", 3), ("steps", (1, 2))]
-    snaps = []
-    for mod in (jprof, tprof):
-        m = mod.Metrics(started=0.0, busy_seconds=2.5)
-        for kind, v in records:
-            if kind == "steps":
-                m.record_steps(*v)
-            elif kind == "ttfa":
-                m.record_ttfa(v)
-            else:
-                m.record_sequences(v)
-        with m.timed():
-            pass
-        snap = m.snapshot()
-        snap.pop("wall_seconds")
-        snap.pop("busy_seconds")
-        snaps.append((snap, m.steps, m.audio_samples))
-    assert snaps[0][1:] == snaps[1][1:] == (170, 170 * 512)
-    for key, want in snaps[0][0].items():
-        assert snaps[1][0][key] == pytest.approx(want, rel=1e-3), key
-    assert snaps[1][0]["ttfa_p50"] == 0.31 and snaps[1][0]["ttfa_p90"] == 0.5
-    for q in (0.0, 0.5, 0.9, 1.0):
-        for vals in ([], [1.0], [3.0, 1.0, 2.0, 5.0]):
-            got, want = (tprof._percentile(sorted(vals), q),
-                         jprof._percentile(sorted(vals), q))
-            assert got == want or (np.isnan(got) and np.isnan(want))
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     d = str(tmp_path / "t")
+
+    def worker():
+        with tprof.span("worker.region", rids=("w1",), n=3):
+            torch.ones(8) + 1
+
     with tprof.trace(d) as where:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        t = threading.Thread(target=worker, name="span-worker")
+        t.start()
+        t.join()
+        torch.ones(64, 64) * 2
     assert where == d
     files = list((tmp_path / "t").glob("trace_*.json"))
     assert len(files) == 1
@@ -255,6 +233,19 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("matmul" in e.get("name", "") or "mm" in e.get("name", "")
                for e in events)
+    # the profiler records no range of another thread; the span list does
+    mine = [e for e in events if e.get("name") == "worker.region"]
+    assert len(mine) == 1 and mine[0]["ph"] == "X"
+    assert mine[0]["tid"] == t.native_id != threading.get_native_id()
+    assert mine[0]["args"]["rids"] == ["w1"] and mine[0]["args"]["n"] == 3
+    main = [e for e in events if e.get("ph") == "X"
+            and e.get("tid") == threading.get_native_id()]
+    # one clock: the main thread's ops before and after bracket the span
+    assert min(e["ts"] for e in main) <= mine[0]["ts"]
+    assert mine[0]["ts"] + mine[0]["dur"] <= max(e["ts"] + e["dur"]
+                                                 for e in main)
+    assert {"ph": "M", "name": "thread_name", "pid": mine[0]["pid"],
+            "tid": t.native_id, "args": {"name": "span-worker"}} in events
     with pytest.raises(RuntimeError):  # the trace is written all the same
         with tprof.trace(d):
             raise RuntimeError("inside")

@@ -366,6 +366,8 @@ def test_health(server):
     with urllib.request.urlopen(url + "/health", timeout=TIMEOUT) as r:
         body = json.load(r)
     assert body["status"] == "ok" and body["code"]["slots"] == 16
+    # the Engine's counters, the tokens recomputed after preemption too
+    assert body["code"]["recomputed_tokens"] >= 0
 
 
 def test_webui_page(server):
