@@ -10,6 +10,17 @@ device; the host reads the all-finished flag every ``SYNC_EVERY`` steps
 (steps run after every row finished change no output: finished rows no
 longer count toward ``end_idx``).
 
+A step keeps its whole state on the device and updates it in place: the
+cache row and the step are device scalars, from which it takes the
+repetition window and the rows it writes.  So on CUDA one step is
+captured into a ``torch.cuda.CUDAGraph`` right after the prefill, once an
+attempt, and every step replays it: the host launches one graph where it
+launched some two hundred kernels.  The same step function runs eagerly
+on CPU tensors and where ``req.noise`` hands the draws from the host.
+The graph registers the call's ``torch.Generator``, so a replay draws the
+Philox numbers the eager step draws at the same seed.  The Generator
+counts ``graph_captures``, ``graph_steps`` and ``eager_steps``.
+
 This is the scalar-``cur`` generator: a flat KV cache (L, B, T, W), int8
 rows with embedded scales by default as in the reference (quantized at the
 prefill -> decode boundary, ``ops/kv_quant.py``), int4 rows or bf16, prompt
@@ -27,15 +38,18 @@ dispatch-ahead); while it enqueues them, the host stops early once chunk
 k's copy has landed and says every row finished.
 
 Under a profiler (``utils/profiling.span``) a call records
-``generator.prefill``, a ``generator.steps`` span around each stretch of
-steps enqueued between two host reads (each step's ``decode_step``
-inside), ``generator.sync`` around the host read of the finished flags
-and ``generator.materialize`` around the final outputs' reads.
+``generator.prefill``, ``generator.capture`` around the graph's capture,
+a ``generator.steps`` span around each stretch of steps enqueued between
+two host reads (each step's ``decode_step`` inside, a replay or an eager
+call of the wrapper; its ``graphed`` attribute counts the replays),
+``generator.sync`` around the host read of the finished flags and
+``generator.materialize`` around the final outputs' reads.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -167,27 +181,29 @@ class GenerateRequest:
 
 
 class _LoopState:
-    """The step loop's state in one attempt: device tensors, and the host's
-    step count and write row."""
+    """The step loop's state in one attempt: device tensors that every step
+    updates in place (a captured step replays on the same buffers), and the
+    host's count of the steps enqueued."""
 
     def __init__(self, hidden, hiddens, finish, end_idx, pos_next, cur):
-        self.hidden = hidden        # (B, D) makes the next token's logits
+        self.hidden = hidden        # (B, D) f32 makes the next token's logits
         self.hiddens = hiddens      # (B, n_buf, D) every kept step's hidden
         self.finish = finish        # (B,) bool
         self.end_idx = end_idx      # (B,) kept tokens (pre-EOS)
         self.pos_next = pos_next    # (B,) rope position of the next token
-        self.cur = cur              # cache row of the next token
-        self.step = 0
+        self.cur = cur              # () cache row of the next token
+        self.step_dev = torch.zeros((), dtype=torch.long, device=cur.device)
+        self.step = 0               # steps enqueued: step_dev once they ran
 
 
 class _Chunk:
-    """One dispatched chunk: its step count, its kept counts on the device,
-    and the host copies (in flight) of its finished flags, kept counts and
-    ids."""
+    """One dispatched chunk: its step count, its kept counts on the device
+    (a copy: later steps update the loop's in place), and the host copies
+    (in flight) of its finished flags, kept counts and ids."""
 
     def __init__(self, st: _LoopState, ids_buf: torch.Tensor, T0: int):
         self.steps = st.step
-        self.end_idx = st.end_idx
+        self.end_idx = st.end_idx.clone()
         self.status = HostCopy(torch.stack([st.finish.long(), st.end_idx]))
         self.ids = HostCopy(ids_buf[:, T0:T0 + st.step])
 
@@ -196,7 +212,9 @@ class _Chunk:
 
 
 class Generator:
-    """Bucketing, the step loop, retry and output trimming."""
+    """Bucketing, the step loop, retry and output trimming.  One call runs
+    at a time: the calls' graphs share a capture stream and a memory
+    pool."""
 
     def __init__(self, cfg: GPTConfig, gpt_params: dict, embed_params: dict,
                  prefill_bucket: int = 32, kv_bits: int = 8,
@@ -216,6 +234,11 @@ class Generator:
                        else k1.pack_weights(gpt_params, cfg))
         self.device = gpt_params["norm"].device
         self._rng_counter = 0
+        self.graph_captures = 0  # CUDA graphs of a step captured
+        self.graph_steps = 0     # steps run as a replay of one
+        self.eager_steps = 0     # steps run op by op
+        self._capture_stream = None  # the side stream of every capture
+        self._graph = None  # the last graph: its pool serves the next
 
     def _pad_prompt(self, req: GenerateRequest):
         """Left-extend prompts to the bucketed length (padding stays left)."""
@@ -315,9 +338,82 @@ class Generator:
         else:
             eos = max_penalized = cfg.num_audio_tokens - 1
         wpos_base = torch.arange(REP_WINDOW, device=dev)
+        capturable = dev.type == "cuda" and req.noise is None
+        # a graph owns its attention tickets (zero, left zero by each step)
+        tickets = (torch.zeros(B * cfg.num_attention_heads,
+                               dtype=torch.int32, device=dev)
+                   if capturable else None)
 
-        st = _LoopState(hidden=hidden, hiddens=hiddens, finish=finish,
-                        end_idx=end_idx, pos_next=pos_next, cur=T0)
+        st = _LoopState(hidden=hidden.to(torch.float32).clone(),
+                        hiddens=hiddens, finish=finish, end_idx=end_idx,
+                        pos_next=pos_next,
+                        cur=torch.full((), T0, dtype=torch.long, device=dev))
+
+        def one_step():
+            """One decode step on ``st``'s buffers, in place; the host reads
+            nothing, so it runs eagerly or as a CUDA graph alike."""
+            if req.infer_text:
+                logits = embed_mod.head_text(self.embed_params, st.hidden)
+            else:
+                logits = embed_mod.head_code(
+                    self.embed_params, st.hidden).reshape(
+                        B * num_vq, cfg.num_audio_tokens)
+            # the REP_WINDOW slots before cur, kept inside the buffer
+            start = (st.cur - REP_WINDOW).clamp(0, Tbuf - REP_WINDOW)
+            wpos = start + wpos_base
+            win = ids_buf.index_select(1, wpos)
+            wmask = (wpos >= T0) & (wpos < st.cur)
+            if req.infer_text:
+                win_rows = win[:, :, 0]
+            else:
+                win_rows = win.transpose(1, 2).reshape(B * num_vq,
+                                                       REP_WINDOW)
+            wmask_rows = wmask[None].expand(win_rows.shape[0], REP_WINDOW)
+            ids_next = sampling.sample(
+                logits, sp, win_rows, wmask_rows, st.step_dev, eos,
+                max_penalized,
+                noise=None if req.noise is None else req.noise(st.step),
+                generator=gen)
+            if req.infer_text:
+                token = ids_next[:, None].expand(B, num_vq)
+                eos_hit = ids_next == eos
+            else:
+                token = ids_next.reshape(B, num_vq)
+                eos_hit = (token == eos).any(-1)
+            st.finish.logical_or_(eos_hit)
+            ids_buf.index_copy_(1, st.cur[None], token[:, None])
+            hiddens.index_copy_(1, st.step_dev[None], st.hidden[:, None])
+            st.end_idx.add_((~st.finish).long())
+
+            emb = (embed_mod.embed_text_step(self.embed_params,
+                                             token[:, 0])
+                   if req.infer_text
+                   else embed_mod.embed_code_step(self.embed_params,
+                                                  token))
+            x_out = k1.decode_step(self.packed, emb, kc, vc, st.cur, lo,
+                                   st.pos_next, cfg, tickets)
+            st.hidden.copy_(llama.rms_norm(x_out, self.gpt_params["norm"],
+                                           cfg.rms_norm_eps))
+            st.cur.add_(1)
+            st.pos_next.add_(1)
+            st.step_dev.add_(1)
+
+        graph = variant = None
+        if capturable and req.max_new > 0:
+            with profiling.span("generator.capture", rows=B):
+                graph = self._capture(one_step, gen)
+            variant = k1.variant_of(kc, st.cur, self.packed, cfg)
+
+        def advance():
+            if graph is None:
+                one_step()
+                self.eager_steps += 1
+            else:
+                with profiling.span("decode_step"):
+                    graph.replay()
+                k1.decode_step.replayed(variant)
+                self.graph_steps += 1
+            st.step += 1
 
         def run_to(hi, stop):
             """Enqueue decode steps until ``st.step == hi``; at every
@@ -328,58 +424,11 @@ class Generator:
                 if st.step % SYNC_EVERY == 0 and st.step and stop():
                     return
                 n = min(hi, (st.step // SYNC_EVERY + 1) * SYNC_EVERY)
-                with profiling.span("generator.steps", steps=n - st.step):
+                with profiling.span("generator.steps", steps=n - st.step,
+                                    graphed=0 if graph is None
+                                    else n - st.step):
                     while st.step < n:
-                        one_step()
-
-        def one_step():
-            step, cur = st.step, st.cur
-            if req.infer_text:
-                logits = embed_mod.head_text(self.embed_params, st.hidden)
-            else:
-                logits = embed_mod.head_code(
-                    self.embed_params, st.hidden).reshape(
-                        B * num_vq, cfg.num_audio_tokens)
-            start = min(max(cur - REP_WINDOW, 0), Tbuf - REP_WINDOW)
-            win = ids_buf[:, start:start + REP_WINDOW]
-            wpos = start + wpos_base
-            wmask = (wpos >= T0) & (wpos < cur)
-            if req.infer_text:
-                win_rows = win[:, :, 0]
-            else:
-                win_rows = win.transpose(1, 2).reshape(B * num_vq,
-                                                       REP_WINDOW)
-            wmask_rows = wmask[None].expand(win_rows.shape[0], REP_WINDOW)
-            ids_next = sampling.sample(
-                logits, sp, win_rows, wmask_rows, step, eos,
-                max_penalized,
-                noise=None if req.noise is None else req.noise(step),
-                generator=gen)
-            if req.infer_text:
-                token = ids_next[:, None].expand(B, num_vq)
-                eos_hit = ids_next == eos
-            else:
-                token = ids_next.reshape(B, num_vq)
-                eos_hit = (token == eos).any(-1)
-            # finish and end_idx are new tensors each step (a chunk's
-            # snapshot keeps its own); the buffers are written in place
-            st.finish = st.finish | eos_hit
-            ids_buf[:, cur] = token
-            hiddens[:, step] = st.hidden
-            st.end_idx = st.end_idx + (~st.finish).long()
-
-            emb = (embed_mod.embed_text_step(self.embed_params,
-                                             token[:, 0])
-                   if req.infer_text
-                   else embed_mod.embed_code_step(self.embed_params,
-                                                  token))
-            x_out = k1.decode_step(self.packed, emb, kc, vc, cur, lo,
-                                   st.pos_next, cfg)
-            st.hidden = llama.rms_norm(x_out, self.gpt_params["norm"],
-                                       cfg.rms_norm_eps)
-            st.cur += 1
-            st.pos_next = st.pos_next + 1
-            st.step += 1
+                        advance()
 
         def sync_stop():
             with profiling.span("generator.sync"):
@@ -395,6 +444,32 @@ class Generator:
             run_to(req.max_new, sync_stop)
         return self._materialize(req, ids_buf, T0, st.end_idx, st.finish,
                                  hiddens, st.step)
+
+    def _capture(self, step, gen: torch.Generator) -> torch.cuda.CUDAGraph:
+        """``step`` captured into a CUDA graph, on this Generator's side
+        stream, in the thread's own capture mode (another thread's CUDA
+        calls cannot break it), with ``gen`` registered: each replay
+        advances it as the eager step would.  It shares the memory pool of
+        the previous graph, whose replays ended with its attempt (the host
+        read the outputs), and keeps the pool for the next."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        pool = None if self._graph is None else self._graph.pool()
+        with torch.cuda.stream(self._capture_stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                step()
+            except BaseException:
+                # the step's own error, not the broken capture's
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        self._graph = graph
+        self.graph_captures += 1
+        return graph
 
     def _stream_chunks(self, req, context, st, run_to, sync_stop, ids_buf,
                        T0):

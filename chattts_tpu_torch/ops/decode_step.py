@@ -35,7 +35,9 @@ combinations are three gemv instantiations times three attention ones.
   (``csrc/decode_step.cu``) and counts the launch under its variant's name
   in ``decode_step.variant_launches`` (``decode_step.launches`` is their
   sum); a CPU tensor takes the plain version.  There is no fallback from
-  one to the other.  Each call, of every variant and of
+  one to the other.  A call captured into a CUDA graph counts nothing: its
+  caller counts each replay (:meth:`DecodeStep.replayed`), and passes the
+  graph's own tickets.  Each call, of every variant and of
   :data:`decode_step_tp`, is one ``decode_step`` span
   (``utils/profiling.py``).
 * :data:`gemv` launches one of the step's gemvs on its own (the kernel's
@@ -77,7 +79,8 @@ the library was built), six launches, seven on kv4, at any batch width:
 the gemv takes its rows in groups of 32 (a weight is read once a group)
 and a row's result does not depend on the batch.  The wrapper allocates
 the pair's scratch on every call and keeps its tickets (one counter per
-(row, head), which the kernel leaves at zero) per device and stream.
+(row, head), which the kernel leaves at zero) per device and stream; a
+step captured into a CUDA graph takes the graph's own.
 """
 
 from __future__ import annotations
@@ -900,15 +903,26 @@ class DecodeStep:
             self._tickets[key] = t
         return t
 
+    def replayed(self, variant: str) -> None:
+        """Count one replay of a step captured into a CUDA graph under its
+        variant: a captured launch counts when the graph runs it."""
+        self.variant_launches[variant] += 1
+
     def __call__(self, packed: dict, emb: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cur: Union[int, torch.Tensor], lo: torch.Tensor,
-                 positions: torch.Tensor, cfg) -> torch.Tensor:
+                 positions: torch.Tensor, cfg,
+                 tickets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One step (module docstring).  ``tickets``: zeroed int32 (row,
+        head) counters, at least B * H, for a step captured into a CUDA
+        graph, which owns them; None takes the stream's kept ones, which a
+        capture must not (the graph would hold them past its life)."""
         with profiling.span("decode_step"):
             return self._step(packed, emb, k_cache, v_cache, cur, lo,
-                              positions, cfg)
+                              positions, cfg, tickets)
 
-    def _step(self, packed, emb, k_cache, v_cache, cur, lo, positions, cfg):
+    def _step(self, packed, emb, k_cache, v_cache, cur, lo, positions, cfg,
+              tickets=None):
         if emb.device.type == "cpu":
             return decode_step_plain(packed, emb, k_cache, v_cache, cur, lo,
                                      positions, cfg)
@@ -980,6 +994,16 @@ class DecodeStep:
         scales = [packed["s" + name[1:]].data_ptr() if wb else None
                   for name in MATRICES]
         stream = torch.cuda.current_stream(dev)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if tickets is None:
+            if capturing:
+                raise ValueError("a captured step takes its graph's own "
+                                 "tickets")
+            tickets = self.tickets(stream, B * H)
+        elif (tickets.dtype != torch.int32 or tickets.device != dev
+              or tickets.numel() < B * H):
+            raise ValueError(f"tickets must be int32 on {dev}, at least "
+                             f"{B * H}")
         err = self._fn()(
             x.data_ptr(), qkv.data_ptr(), o.data_ptr(), gu.data_ptr(),
             *(packed[name].data_ptr() for name in MATRICES), *scales,
@@ -987,13 +1011,13 @@ class DecodeStep:
             cos.data_ptr(), sin.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), cur32.data_ptr(), lo32.data_ptr(),
             scores.data_ptr(), cmax.data_ptr(), part.data_ptr(),
-            self.tickets(stream, B * H).data_ptr(),
-            B, D, H, Dh, I, L, T, kvb, wb, gs,
+            tickets.data_ptr(), B, D, H, Dh, I, L, T, kvb, wb, gs,
             cfg.rms_norm_eps, 1.0 / float(np.sqrt(Dh)), stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"decode_step_launch failed with CUDA error "
                                f"{err}")
-        self.variant_launches[variant] += 1
+        if not capturing:
+            self.variant_launches[variant] += 1
         return x
 
 

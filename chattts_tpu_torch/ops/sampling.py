@@ -144,8 +144,9 @@ def sample(logits: torch.Tensor, params: SamplingParams,
                < _per_row(params.min_new, N, torch.long, dev))
     eos_rows = _per_row(eos_token, N, torch.long, dev)
     removed |= eos_sup[:, None] & (order == eos_rows[:, None])
-    s_asc = torch.where(removed, torch.tensor(float("-inf"), device=dev),
-                        s_asc)
+    # a Python scalar: no host-to-device copy, so a CUDA graph can
+    # capture the draw
+    s_asc = torch.where(removed, float("-inf"), s_asc)
 
     if noise is None:
         noise = gumbel((N, V), generator, logits.device)

@@ -1755,27 +1755,47 @@ class Keeper:
     """Stands in for ``decode_step`` in a module's namespace: calls through,
     counts its calls by batch width (``widths``), and keeps the inputs and
     results of the calls ``want(n, cur, kc)`` picks (device copies, made
-    without a host sync)."""
+    without a host sync).
+
+    A call captured into the Generator's CUDA graph is counted by its
+    replays (:meth:`replayed`) and always kept: its copies are captured
+    too, so once the pass ends they hold the pass's last step.  The graph
+    keeps no other step: ``unkept`` counts the replays past the first that
+    ``want`` picks."""
 
     def __init__(self, want):
         from chattts_tpu_torch.ops.decode_step import decode_step
 
         self.inner, self.want, self.kept, self.n = decode_step, want, [], 0
         self.widths = collections.Counter()
+        self.unkept = 0
+        self._width = self._replays = 0  # of the last captured call
 
-    def __call__(self, packed, emb, kc, vc, cur, lo, pos, cfg):
+    def __call__(self, packed, emb, kc, vc, cur, lo, pos, cfg, *rest):
         import torch
 
-        keep = self.want(self.n, cur, kc)
-        self.n += 1
-        self.widths[emb.shape[0]] += 1
+        capturing = torch.cuda.is_current_stream_capturing()
+        if capturing:
+            keep, self._width, self._replays = True, emb.shape[0], 0
+        else:
+            keep = self.want(self.n, cur, kc)
+            self.n += 1
+            self.widths[emb.shape[0]] += 1
         if not keep:
-            return self.inner(packed, emb, kc, vc, cur, lo, pos, cfg)
+            return self.inner(packed, emb, kc, vc, cur, lo, pos, cfg, *rest)
         before = tuple(t.clone() if isinstance(t, torch.Tensor) else t
                        for t in (emb, kc, vc, cur, lo, pos))
-        x = self.inner(packed, emb, kc, vc, cur, lo, pos, cfg)
+        x = self.inner(packed, emb, kc, vc, cur, lo, pos, cfg, *rest)
         self.kept.append((before, x.clone(), kc.clone(), vc.clone()))
         return x
+
+    def replayed(self, variant):
+        wanted = self.want(self.n, None, None)
+        self.unkept += bool(wanted and self._replays)
+        self._replays += 1
+        self.n += 1
+        self.widths[self._width] += 1
+        self.inner.replayed(variant)
 
 
 SAMPLES_PER_STEP = 512  # one code step: 2 mel frames of hop 256
@@ -1884,7 +1904,8 @@ def _main_path_run(c, run, title, at_least, later=48, widths=None):
     steps on, and the decode steps the passes report counted (a streamed
     Generator pass: its last output's).
     Every call must have launched one kernel, the launches cover the
-    steps, at least ``at_least`` calls are kept, and the kept calls are
+    steps, at least ``at_least`` calls are kept less those a graph's
+    replays could not keep (``Keeper.unkept``), and the kept calls are
     held to the plain version variant by variant.  ``widths``, a Counter,
     gets the calls by batch width.  Returns (the result, wall seconds,
     launches by variant, {variant: the kept calls' largest hidden error},
@@ -1956,8 +1977,9 @@ def _main_path_run(c, run, title, at_least, later=48, widths=None):
     check(launched == keeper.n and launched >= sum(steps) > 0,
           f"{title}: {launched} launches ({counts}) for {keeper.n} calls and "
           f"{sum(steps)} decode steps")
-    check(len(keeper.kept) >= at_least,
-          f"{title}: kept {len(keeper.kept)} calls, expected {at_least}")
+    check(len(keeper.kept) >= at_least - keeper.unkept,
+          f"{title}: kept {len(keeper.kept)} calls, expected {at_least} "
+          f"less {keeper.unkept} a graph replayed")
     if widths is not None:
         widths.update(keeper.widths)
     cfg = c.config.gpt

@@ -31,6 +31,7 @@ from chattts_tpu.engine import generate as jg
 from chattts_tpu.models import embed as je
 from chattts_tpu.models import llama as jl
 from chattts_tpu_torch.engine import generate as tg
+from chattts_tpu_torch.utils import profiling
 from torch_port_utils import JaxGumbel, bridge, forced_tokens, port_config
 
 LOGIT_ATOL = 0.05
@@ -153,7 +154,7 @@ def test_ensure_non_empty_retries_unseeded(models, monkeypatch):
     steps = []
 
     def first_draw_is_eos(logits, *args, **kwargs):
-        steps.append(args[3])
+        steps.append(int(args[3]))  # the loop's step, advanced in place
         if len(steps) == 1:  # first attempt, first step: EOS everywhere
             return torch.full((logits.shape[0],), eos)
         return real_sample(logits, *args, **kwargs)
@@ -174,3 +175,29 @@ def test_interrupt_stops_generation(models):
     gen = tg.Generator(pcfg, tgpt, temb, prefill_bucket=16)
     out = next(gen.generate(tg.GenerateRequest(**kw), ctx))
     assert out.steps == tg.SYNC_EVERY  # stopped at the first flag read
+
+
+def test_cpu_steps_run_eagerly_and_min_new_holds_eos(models):
+    """On CPU tensors the Generator captures no graph: every step runs op
+    by op, each ``generator.steps`` span says none was replayed, and the
+    step's device-held position still suppresses EOS below ``min_new``
+    (the heads favour EOS here, so rows would stop early)."""
+    cfg, _, _, pcfg, tgpt, temb = models
+    kw = _request(cfg, False, 9, max_new=13)
+    gen = tg.Generator(pcfg, tgpt, temb, prefill_bucket=16)
+    free = next(gen.generate(tg.GenerateRequest(**kw)))
+    assert free.finished.any()
+    kw["min_new"] = 13
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.clear_spans()
+        out = next(gen.generate(tg.GenerateRequest(**kw)))
+        rec = profiling.spans()
+    assert (gen.graph_captures, gen.graph_steps) == (0, 0)
+    assert gen.eager_steps == free.steps + out.steps
+    assert out.steps == 13 and not out.finished.any()
+    np.testing.assert_array_equal(out.end_dev.numpy(), [13, 13])
+    stretches = [s for s in rec if s.name == "generator.steps"]
+    assert sum(s.attrs["steps"] for s in stretches) == 13
+    assert all(s.attrs["graphed"] == 0 for s in stretches)
+    assert not any(s.name == "generator.capture" for s in rec)
