@@ -13,7 +13,7 @@ before ``--seconds`` ran out.
 
 from __future__ import annotations
 
-from harness import program, serve, traffic
+from harness import family, program, serve, traffic
 
 CALLS = 256   # calls made ready, used in turn; a window uses tens
 
@@ -39,10 +39,11 @@ def _call(s, batch, index, keys=None):
 
 def setup(s) -> None:
     rng = traffic.rng_for(s.seed, "speaker")
-    vec = traffic.speaker_vector(rng, s.config["gpt"]["hidden_size"])
+    fam = family.of(s.config)
+    vec = traffic.speaker_vector(rng, fam.sizes(s.config)["speaker_dim"])
     s.state["spk_vec"] = vec
     s.state["spk"] = traffic.speaker_string(vec)
-    chat = program.load_chat(s.config, s.weights, s.device)
+    chat = fam.load_chat(s.config, s.weights, s.device)
     program.record_decodes(chat, s.outputs)
     s.state["chat"] = chat
     s.state["calls"] = traffic.batches(s.traffic, s.seed, CALLS)

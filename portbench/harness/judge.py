@@ -20,13 +20,15 @@ preempted is followed through its resumes (the generated lengths at
 which it was recomputed, which the program's scheduler chose and
 ``program.record_resumes`` kept).
 
-The control puts the reference in the program's place one weight tier
-below the configuration's on every row (int8 for bf16 weights, int4 for
-int8), at the same prompts and tokens: the gap of the token it puts
-first, and the distance of its audio.  A run with ``--control 1`` judges
-the control's numbers in place of the program's, so it comes out not
-correct; the control's readings set the upper end of each limit (PERF.md
-gives the readings).
+The reference, its tiers and the sizes read here are the configuration's
+family's (``families/<name>.py``: ``reference``, ``lower_tier``,
+``sizes``).  The control puts the reference in the program's place one
+weight tier below the configuration's on every row (ChatTTS: int8 for
+bf16 weights, int4 for int8), at the same prompts and tokens: the gap of
+the token it puts first, and the distance of its audio.  A run with
+``--control 1`` judges the control's numbers in place of the program's,
+so it comes out not correct; the control's readings set the upper end of
+each limit (PERF.md gives the readings).
 """
 
 from __future__ import annotations
@@ -35,10 +37,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from reference import model as ref
-from . import traffic
-
-LOWER_TIER = {0: 8, 8: 4}   # a weight tier -> the next below it
+from . import family, traffic
 
 
 def chosen(samples: Dict, count: int, seed: int) -> List:
@@ -59,12 +58,11 @@ def compare(s, samples: Dict, control: bool = False) -> Dict[str, dict]:
     readings stand beside them under "program"."""
     import torch
 
+    fam = family.of(s.config)
+    ref, sizes = fam.reference, fam.sizes(s.config)
     ref.tf32_off()
-    cfg = {"gpt": s.config["gpt"], "decoder": s.config["decoder"],
-           "vocos": s.config["vocos"],
-           "decode_pad": s.config["runtime"]["decode_bucket"] // 4}
     kvb, wb = s.config["kv_bits"], s.config["weight_bits"]
-    eos = s.config["gpt"]["num_audio_tokens"] - 1
+    eos = sizes["num_audio_tokens"] - 1
     penalty = s.traffic.get("repetition_penalty", 1.05)
     keys = chosen(samples, s.workload["judge"]["requests"], s.seed)
     worst = {"logit_gap": 0.0, "wav_rel_err": 0.0}
@@ -75,7 +73,7 @@ def compare(s, samples: Dict, control: bool = False) -> Dict[str, dict]:
             text, codes, audio = samples[key]
             resumes = s.outputs.resumes.get(key, [])
             tokens += len(codes)
-            r = ref.request_reference(s.weights, cfg, text,
+            r = ref.request_reference(s.weights, s.config, text,
                                       s.state["spk_vec"], codes, kvb, wb,
                                       resumes=resumes)
             scores = ref.penalized(r["logits"], codes, penalty, eos)
@@ -84,14 +82,14 @@ def compare(s, samples: Dict, control: bool = False) -> Dict[str, dict]:
             worst["logit_gap"] = max(worst["logit_gap"], gap)
             worst["wav_rel_err"] = max(worst["wav_rel_err"], err)
             s.say(f"judged {key}: {len(codes)} steps, prompt "
-                  f"{len(ref.prompt_ids(text, cfg['gpt']['num_text_tokens']))}"
+                  f"{len(ref.prompt_ids(text, sizes['num_text_tokens']))}"
                   f" tokens, resumed at {resumes}, logit gap {gap!r}, wav "
                   f"rel err {err!r}")
             if control:
-                c = ref.request_reference(s.weights, cfg, text,
+                c = ref.request_reference(s.weights, s.config, text,
                                           s.state["spk_vec"], codes, kvb,
-                                          LOWER_TIER[wb], LOWER_TIER[0],
-                                          resumes=resumes)
+                                          fam.lower_tier(wb),
+                                          fam.lower_tier(0), resumes=resumes)
                 picked = ref.penalized(c["logits"], codes, penalty,
                                        eos).argmax(-1).cpu().numpy()
                 cg = float(ref.gaps(scores, picked).max())
@@ -99,9 +97,9 @@ def compare(s, samples: Dict, control: bool = False) -> Dict[str, dict]:
                                         r["wav"][:len(audio)])
                 ctl["logit_gap"] = max(ctl["logit_gap"], cg)
                 ctl["wav_rel_err"] = max(ctl["wav_rel_err"], ce)
-                s.say(f"control {key} (prompt int8, steps int"
-                      f"{LOWER_TIER[wb]}): logit gap {cg!r}, wav rel err "
-                      f"{ce!r}")
+                s.say(f"control {key} (prompt int{fam.lower_tier(0)}, "
+                      f"steps int{fam.lower_tier(wb)}): logit gap {cg!r}, "
+                      f"wav rel err {ce!r}")
     limits = s.workload["limits"]
     s.counters["judged_requests"] = len(keys)
     s.counters["judged_tokens"] = tokens

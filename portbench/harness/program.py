@@ -1,6 +1,6 @@
-"""The system under test: the program's ``Chat`` built from a configuration
-file and the benchmark's weights, and the hooks that record what the timed
-path produced.
+"""The hooks that record what the timed path produced, the same for every
+family (the program's ``Chat`` is built by the configuration's family,
+``families/<name>.py``, ``load_chat``).
 
 The hooks are instance wrappers: they call the program's own method and
 keep its return value (or the tokens it streamed) for the comparison with
@@ -11,36 +11,6 @@ from __future__ import annotations
 
 import threading
 from typing import Dict
-
-
-def port_config(cfg: dict):
-    """The program's ``Config`` of a configuration file."""
-    from chattts_tpu_torch.config import (Config, ConvStackConfig,
-                                          DecoderConfig, GPTConfig, MelConfig,
-                                          VocosConfig)
-
-    v = dict(cfg["vocos"])
-    mel = MelConfig(sample_rate=v.pop("sample_rate"), n_fft=v["n_fft"],
-                    hop_length=v["hop_length"], n_mels=v["input_channels"])
-    d = cfg["decoder"]
-    return Config(
-        gpt=GPTConfig(**cfg["gpt"]),
-        decoder=DecoderConfig(stack=ConvStackConfig(**d["stack"]),
-                              n_mels=d["n_mels"]),
-        vocos=VocosConfig(mel=mel, **v)).with_runtime(**cfg["runtime"])
-
-
-def load_chat(cfg: dict, weights: dict, device, use_engine: bool = False):
-    """A loaded ``Chat`` on the benchmark's weights, at the configuration's
-    weight and cache tiers."""
-    from chattts_tpu_torch.core import Chat
-
-    chat = Chat(config=port_config(cfg))
-    chat.load_params(gpt=weights["gpt"], embed=weights["embed"],
-                     decoder=weights["decoder"], vocos=weights["vocos"],
-                     device=device, use_engine=use_engine,
-                     weight_bits=cfg["weight_bits"], kv_bits=cfg["kv_bits"])
-    return chat
 
 
 class Outputs:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import threading
 
-from . import program, traffic
+from . import family, program, traffic
 
 GREEDY_TEMPERATURE = 1e-5
 TIMEOUT_S = 120.0   # the service's own limit on a request thread's waits
@@ -31,10 +31,11 @@ def start_service(s):
     from chattts_tpu_torch.serving import TTSService
 
     rng = traffic.rng_for(s.seed, "speaker")
-    vec = traffic.speaker_vector(rng, s.config["gpt"]["hidden_size"])
+    fam = family.of(s.config)
+    vec = traffic.speaker_vector(rng, fam.sizes(s.config)["speaker_dim"])
     s.state["spk_vec"] = vec
     s.state["spk"] = traffic.speaker_string(vec)
-    chat = program.load_chat(s.config, s.weights, s.device)
+    chat = fam.load_chat(s.config, s.weights, s.device)
     program.record_decodes(chat, s.outputs)
     service = TTSService(chat, timeout=TIMEOUT_S)
     program.record_streamed_codes(service, s.outputs)

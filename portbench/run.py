@@ -6,14 +6,17 @@
 from the root of a checkout.  The cell is an entry of ``workloads`` in
 ``BENCHMARK.json``; it names a configuration (``portbench/configs/``), and
 its traffic mix (``portbench/workloads/<name>.json``) names the driver
-(``portbench/drivers/<driver>.py``) that runs it.  Each metric is read by
-its own reader (``portbench/metrics/<metric>.py``).  The run draws the
-weights and inputs from ``--seed``, builds the program and warms up every
-shape its traffic uses (``setup_s``), measures for ``--seconds``, then
-compares a sample of what the window produced with the plain reference
-(``portbench/reference/``) and prints one JSON line last: with
-``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer metrics from a profiled stretch of the window.
+(``portbench/drivers/<driver>.py``) that runs it.  The configuration's
+family (``portbench/families/<name>.py``, named by its ``"family"`` key)
+gives the weight layout, the program's loader and the plain reference.
+Each metric is read by its own reader (``portbench/metrics/<metric>.py``).
+The run draws the weights and inputs from ``--seed``, builds the program
+and warms up every shape its traffic uses (``setup_s``), measures for
+``--seconds``, then compares a sample of what the window produced with
+the family's plain reference (``portbench/reference/``) and prints one
+JSON line last: with ``--trace 0`` the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics from a profiled stretch of the
+window.
 
 ``--control 1`` judges the control in the program's place (the reference
 one weight tier lower), so its run comes out not correct; the program's
@@ -173,8 +176,13 @@ def main(argv=None) -> int:
     torch.set_num_interop_threads(1)
     device = torch.device(a.device)
 
-    from harness import judge, weights
+    from harness import family, judge, weights
     from harness.session import Session
+
+    try:
+        family.of(config)
+    except family.Unknown as e:
+        fail(str(e))
 
     driver = importlib.import_module("drivers." + workload["driver"])
     s = Session(name=a.workload, seed=a.seed, seconds=a.seconds,
