@@ -46,9 +46,9 @@
 //
 // A row's result depends on that row's inputs only, never on B or on the
 // other rows: every sum runs in an order fixed by K alone.  The gemv runs
-// over row groups of 32 (grid.y): a block keeps at most 32 bf16 input rows
-// in shared memory (194 KB at K 3072) whatever B is, and the weights are
-// read once per group, after the first mostly from L2.  A step takes 1 to
+// over row groups of 32 (grid.y): a block multiplies at most 32 input rows
+// whatever B is, and the weights are read once per group, after the first
+// mostly from L2.  A step takes 1 to
 // kMaxB rows: the attention pair's grid has B in gridDim.z, whose limit is
 // 65535, and every index that grows with B (cache rows, scores, chunk
 // maxima, partials, tickets, the gemv's input and output rows) is formed
@@ -64,24 +64,37 @@
 // row's pad past the scales is written, never read).  Its arithmetic
 // intensity is ~B flop/byte, far below the ~295 the tensor cores need, so
 // it is bound by bytes.  The TPU kernel's sequential layer grid becomes a
-// host loop over layers (six launches a layer, seven on the int4 cache);
-// its slab DMA ring and aligned append windows are TPU mechanics with no
-// counterpart here.
+// host loop over layers (six launches a layer, seven on the int4 cache,
+// and one rows pass a step); its slab DMA ring and aligned append windows
+// are TPU mechanics with no counterpart here.
 //
 // The gemv (four launches a layer) reads each weight byte once per row
 // group: block (x, y) owns kGemvTiles tiles of 8 output columns for the up
-// to 32 rows of group y, and first builds those rows' bf16 inputs in shared
-// memory (the prologue: rms norm or silu * up, from the f32 rows in L2).
-// Its kGemvWarps warps split K into contiguous slices of 32-value steps;
-// for each step a lane loads 8 weights of one column with one 16-, 8- or
-// 4-byte load (bf16, int8, int4), kGemvUnroll steps ahead of their
-// products, and two tensor-core mmas (mma.sync m16n8k16, bf16 in, f32
-// sums) multiply them by 16 input rows taken straight from shared memory
-// into registers, no ldmatrix, with one permutation of k on both sides.
-// The warps' partial tiles are added in warp order in shared memory: one
-// block owns a column tile, so there is no cross-block sum and no atomic.
-// The prologue is the likely limiter: every block re-reads its B rows of
-// K (2K for silu) f32 inputs from L2 (PERF.md).
+// to 32 rows of group y.  Its input rows are bf16 and built once a gemv,
+// in global memory, by the launch that produces them, so no block of the
+// gemv spends anything before its first weight load: the gate/up gemv's
+// epilogue writes down's rows bf16(silu(gate) * up) (a block owns 8 gate
+// columns and the same 8 up columns, so both sums meet in its epilogue);
+// the gemvs that add into the residual (wo, down) end with a finisher,
+// the last block of each row group to add (an atomic ticket after a
+// __threadfence, as attend_values does) writing the group's rms-normed
+// rows for the next gemv (gate/up, the next layer's qkv); wo rounds the
+// attention's f32 o as it loads it; layer 0's qkv rows come from a pass of
+// their own over the embedding, one launch a step.  Its kGemvWarps warps
+// split K into contiguous slices of 32-value steps; for each step a lane
+// loads 8 weights of one column with one 16-, 8- or 4-byte load (bf16,
+// int8, int4) and the 8 values of its input rows at the same k from L2,
+// kGemvUnroll steps of both ahead of their products (half that at 32
+// rows, to keep two blocks an SM), and two tensor-core mmas (mma.sync
+// m16n8k16, bf16 in, f32 sums) multiply them, no ldmatrix, with one
+// permutation of k on both sides.  The warps' partial tiles are
+// added in warp order in shared memory: one block owns a column tile, so
+// there is no cross-block sum and no atomic but the finisher's ticket.
+// What bounds it now: every block of a row group still reads the group's
+// bf16 rows (K values each) from L2, N / (8 kGemvTiles) times a group, and
+// at 64 rows those reads outweigh a block's weight bytes; the finisher's
+// pass over its group's rows stands after the last block of wo and down
+// (PERF.md).
 //
 // Attention is bound by bytes too: a row reads 2 * n * R bytes of keys and
 // values for n visible keys (6.3 MB a layer at 8 rows, 256 keys, bf16: 1.9
@@ -116,8 +129,6 @@
 // (B, H, S), partials (B, H, S, Dh + 1) and tickets (B * H, zero between
 // launches, one buffer to a stream) come from the wrapper, which sizes them
 // from decode_step_attn_chunk().
-// Launch overhead and the gemv's prologue dominate the step; a CUDA graph
-// and a prologue built once a gemv are later work.
 //
 // Tensor parallelism needs an all_reduce after wo and after down in every
 // layer, which a step that loops over the layers on the device has no room
@@ -169,7 +180,13 @@ constexpr int kAttnBlocks = ATTN_BLOCKS;
 // default, less room for the kernels' small static arrays
 constexpr size_t kDefaultSmem = 46 * 1024;
 
-enum InMode { IN_NONE = 0, IN_RMS = 1, IN_SILU = 2 };
+// a gemv's input rows: prepared bf16, or f32 rounded as they are loaded
+enum GemvIn { IN_BF16 = 0, IN_F32 = 1 };
+// what a gemv does with its sums (gemv_kernel)
+enum GemvOut { OUT_STORE = 0, OUT_ADD = 1, OUT_NORM = 2, OUT_SILU = 3 };
+// the rows a pass of their own builds (gemv_kernel_rows), numbered as the
+// one-gemv entry's modes (0 is its f32 input as it is)
+enum RowsMode { ROWS_RMS = 1, ROWS_SILU = 2 };
 enum WeightTier { W_BF16 = 0, W_INT8 = 8, W_INT4 = 4 };
 enum CacheTier { KV_BF16 = 0, KV_INT8 = 8, KV_INT4 = 4 };
 
@@ -256,17 +273,8 @@ __device__ __forceinline__ void mma_bf16_16x8x16(float* c, uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// bf16 values between two input rows in a gemv block's shared memory: at
-// least K, and 64 bytes past a multiple of 128, so the 8 lanes of one
-// 16-byte load phase (rows g, g + 1 at k pairs 8t .. 8t + 7) hit 8 distinct
-// 16-byte bank groups.
-__host__ __device__ __forceinline__ int gemv_row_stride(int K) {
-  return K + (96 - K % 64) % 64;
-}
-
-// Bytes of a gemv block's dynamic shared memory, in this order: the warps'
-// partial tiles (f32), the block's weight scales (f32, quantized tiers),
-// the bf16 input rows.
+// Bytes of a gemv block's dynamic shared memory: the warps' partial tiles
+// (f32), then the block's weight scales (f32, quantized tiers).
 template <int BR>
 __host__ __device__ __forceinline__ size_t gemv_red_bytes() {
   return (size_t)kGemvWarps * kGemvTiles * BR * 8 * sizeof(float);
@@ -275,118 +283,224 @@ __host__ __device__ __forceinline__ size_t gemv_scale_bytes(int G) {
   return ((size_t)kGemvTiles * 8 * G * sizeof(float) + 15) / 16 * 16;
 }
 
-// out[b, n] (=|+=) sum_k bf16(in'[b, k]) * W[n, k]   for b < B, n < N
-// in' is the prologue's transform of x:
-//   IN_NONE: x[b, k]
-//   IN_RMS:  x[b, k] * rsqrt(mean_k x[b, :]^2 + eps) * lnw[k]
-//   IN_SILU: silu(x[b, k]) * x[b, K + k]      (x holds [gate | up])
-// W is (N, K) row-major of tier WT: bf16, int8, or int4 nibbles (K/2 bytes a
-// row); quantized tiers carry wscale (N, K/group) f32 and W[n, k] stands for
-// the integer times wscale[n, k / group].  K % 8 == 0, and group % 32 == 0
-// with K % group == 0; x rows are x_stride floats apart.  Block (x, y)
-// serves output columns [8 T x, 8 T (x + 1)), T = kGemvTiles, of rows
-// [32 y, 32 y + 32); BR (16 or 32) is the rows it multiplies, one m-tile of
-// 16 or two.  The products run on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 sums): warp w takes the 32-value steps [w S / NW,
-// (w + 1) S / NW) of K's S steps, lane 4g + t loading the 8 weights
-// W[n0 + g, k + 8t .. k + 8t + 7] of a step at k with one 16-byte (int8: 8,
-// int4: 4) load and the input rows g and g + 8 at the same 8 values from
-// shared memory; values 8t + {0,1,2,3} feed the first mma of the step as
-// its k pairs 2t and 2t + 8, values 8t + {4,5,6,7} the second.  A and B
-// take the same permutation of k, so every output sums the step's 32
-// products.  Rows >= B and values past K read zeros; columns past N
-// recompute column N - 1 and store nothing.  On a quantized tier each warp
-// sums a scale group into `part` and adds part * scale to its total where
-// the group or its slice ends.  The warps' partial tiles are added in warp
-// order in shared memory, so a row's sum runs in an order fixed by K alone:
-// it does not depend on B, on BR, on y or on the other rows.
-template <int MODE, bool ADD, int BR, int WT>
+// silu(v) * u as the rows are built for down: (v / (1 + e^-v)) * u, each
+// step rounded to f32 (gemv_rows_plain)
+__device__ __forceinline__ float silu_mul(float v, float u) {
+  return __fmul_rn(__fdiv_rn(v, __fadd_rn(1.f, expf(-v))), u);
+}
+
+// bf16((v * rs) * w), four values, each product rounded to f32
+__device__ __forceinline__ uint2 norm4(const float4& v, float rs,
+                                       const float4& w) {
+  return make_uint2(pack_bf16x2(__fmul_rn(__fmul_rn(v.x, rs), w.x),
+                                __fmul_rn(__fmul_rn(v.y, rs), w.y)),
+                    pack_bf16x2(__fmul_rn(__fmul_rn(v.z, rs), w.z),
+                                __fmul_rn(__fmul_rn(v.w, rs), w.w)));
+}
+
+// v.x^2 + v.y^2 + v.z^2 + v.w^2, left to right, every product and sum
+// rounded (no fused multiply-add): one lane's term of a row's squares
+__device__ __forceinline__ float sum_sq4(const float4& v) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+                             __fmul_rn(v.z, v.z)),
+                   __fmul_rn(v.w, v.w));
+}
+
+// The rms-normed bf16 rows of rows [0, B) of a group (B <= kRowsPerBlock):
+// rows[b, k] = bf16((x[b, k] * rsqrt(mean_k x[b, :]^2 + eps)) * lnw[k]).
+// Warp w builds rows w, w + kGemvWarps, ...; lane l sums the squares of
+// the float4s l, l + 32, ... of a row in that order (sum_sq4), and the
+// warp's butterfly adds the 32 lane sums: an order fixed by K alone, so a
+// row's bf16 values depend on its own values only (gemv_rows_plain).  It
+// stands after the last block of a gemv, so its time is latency: up to
+// K 32 * 4 * kRowChunks a lane holds its share of two rows and of lnw in
+// registers, every load of both rows in flight at once; a wider row is
+// read twice.  x is read through L2 (__ldcg): the finisher reads values
+// that other blocks of its launch wrote.  K % 4 == 0.
+constexpr int kRowChunks = 6;  // float4s of a row a lane holds (K <= 768)
+
+__device__ __forceinline__ void rms_rows(const float* x, int x_stride,
+                                         const float* __restrict__ lnw,
+                                         __nv_bfloat16* rows, int B, int K,
+                                         float eps, int warp, int lane) {
+  const int K4 = K / 4;
+  const float4* wr = reinterpret_cast<const float4*>(lnw);
+  if (K4 <= 32 * kRowChunks) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 w[kRowChunks];
+#pragma unroll
+    for (int c = 0; c < kRowChunks; ++c)
+      w[c] = lane + 32 * c < K4 ? __ldg(wr + lane + 32 * c) : zero;
+    for (int b0 = warp; b0 < B; b0 += 2 * kGemvWarps) {
+      float4 v[2][kRowChunks];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int b = b0 + r * kGemvWarps;
+        const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * x_stride);
+#pragma unroll
+        for (int c = 0; c < kRowChunks; ++c)
+          v[r][c] = b < B && lane + 32 * c < K4 ? __ldcg(xr + lane + 32 * c) : zero;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int b = b0 + r * kGemvWarps;
+        float ss = 0.f;
+#pragma unroll
+        for (int c = 0; c < kRowChunks; ++c)  // + 0 past the row: exact
+          ss = __fadd_rn(ss, sum_sq4(v[r][c]));
+        const float rs = rsqrtf(warp_sum(ss) / (float)K + eps);
+        uint2* out = reinterpret_cast<uint2*>(rows + (size_t)b * K);
+#pragma unroll
+        for (int c = 0; c < kRowChunks; ++c)
+          if (b < B && lane + 32 * c < K4) out[lane + 32 * c] = norm4(v[r][c], rs, w[c]);
+      }
+    }
+    return;
+  }
+  for (int b = warp; b < B; b += kGemvWarps) {
+    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * x_stride);
+    uint2* out = reinterpret_cast<uint2*>(rows + (size_t)b * K);
+    float ss = 0.f;
+    for (int k4 = lane; k4 < K4; k4 += 32)
+      ss = __fadd_rn(ss, sum_sq4(__ldcg(xr + k4)));
+    const float rs = rsqrtf(warp_sum(ss) / (float)K + eps);
+    for (int k4 = lane; k4 < K4; k4 += 32)
+      out[k4] = norm4(__ldcg(xr + k4), rs, __ldg(wr + k4));
+  }
+}
+
+// A gemv's bf16 input rows built by a pass of their own: the layer-0 qkv
+// rows of a step (from the embedding), and the one-gemv entry's rows.
+//   ROWS_RMS:  rows (B, K) = rms_rows of x with lnw; block y builds the
+//              rows of group y, as a gemv's finisher does
+//   ROWS_SILU: rows[b, k] = bf16(silu_mul(x[b, k], x[b, K + k]))
+// x rows x_stride floats apart; rows (B, K) contiguous.
+template <int MODE>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-gemv_kernel(const float* __restrict__ x, int x_stride,
-            const float* __restrict__ lnw, const void* __restrict__ W,
-            const float* __restrict__ wscale, int group,
-            float* __restrict__ out, int out_stride, int B, int K, int N,
-            float eps) {
+gemv_kernel_rows(const float* __restrict__ x, int x_stride,
+                 const float* __restrict__ lnw,
+                 __nv_bfloat16* __restrict__ rows, int B, int K, float eps) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int nb = min(B - row0, kRowsPerBlock);
+  x += (size_t)row0 * x_stride;
+  rows += (size_t)row0 * K;
+  if (MODE == ROWS_RMS) {
+    rms_rows(x, x_stride, lnw, rows, nb, K, eps, warp, lane);
+    return;
+  }
+  const int K8 = K / 8;
+  for (int i = tid; i < nb * K8; i += blockDim.x) {
+    const int b = i / K8, k = (i - b * K8) * 8;
+    const float4* gr = reinterpret_cast<const float4*>(x + (size_t)b * x_stride + k);
+    const float4* ur = reinterpret_cast<const float4*>(x + (size_t)b * x_stride + K + k);
+    float v[8], u[8];
+    *reinterpret_cast<float4*>(v) = __ldg(gr);
+    *reinterpret_cast<float4*>(v + 4) = __ldg(gr + 1);
+    *reinterpret_cast<float4*>(u) = __ldg(ur);
+    *reinterpret_cast<float4*>(u + 4) = __ldg(ur + 1);
+    uint4 packed;
+    packed.x = pack_bf16x2(silu_mul(v[0], u[0]), silu_mul(v[1], u[1]));
+    packed.y = pack_bf16x2(silu_mul(v[2], u[2]), silu_mul(v[3], u[3]));
+    packed.z = pack_bf16x2(silu_mul(v[4], u[4]), silu_mul(v[5], u[5]));
+    packed.w = pack_bf16x2(silu_mul(v[6], u[6]), silu_mul(v[7], u[7]));
+    *reinterpret_cast<uint4*>(rows + (size_t)b * K + k) = packed;
+  }
+}
+
+// 8 input values k0..k0+7 of a row as bf16 pairs (value 2i in the low half
+// of word i): prepared bf16 rows as they are, f32 rows rounded here.  The
+// rows were written by an earlier launch, so the read-only path is safe.
+template <int IN>
+__device__ __forceinline__ uint4 load_input8(const void* row, int k0) {
+  if (IN == IN_BF16)
+    return __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(row) + k0));
+  const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(row) + k0);
+  const float4 a = __ldg(p), b = __ldg(p + 1);
+  return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
+                    pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
+}
+
+// y[b, n] = sum_k in[b, k] * W[n, k]   for b < B, n < N, then the epilogue:
+//   OUT_STORE: out[b, n] = y          OUT_ADD: out[b, n] += y
+//   OUT_NORM:  out[b, n] += y, and the last block of the row group to add
+//              writes rows = rms_rows of the group's new out with lnw
+//              (N wide): the next gemv's prepared input
+//   OUT_SILU:  N = 2I rows of W, [gate | up]; rows[b, c] =
+//              bf16(silu_mul(y[b, c], y[b, I + c])) for c < I
+// in is IN_BF16 rows (prepared: no rounding left) or IN_F32 rows rounded
+// to bf16 as they are loaded, in_stride values apart.  W is (N, K)
+// row-major of tier WT: bf16, int8, or int4 nibbles (K/2 bytes a row);
+// quantized tiers carry wscale (N, K/group) f32 and W[n, k] stands for the
+// integer times wscale[n, k / group].  K % 8 == 0, and group % 32 == 0
+// with K % group == 0.  Block (x, y) serves rows [32 y, 32 y + 32) and
+// kGemvTiles tiles of 8 weight rows: columns [8 T x, 8 T (x + 1)), T =
+// kGemvTiles, or for OUT_SILU gate columns [8 T/2 x, 8 T/2 (x + 1)) and
+// the same up columns, so one block holds both sums of its outputs.  BR
+// (16 or 32) is the rows it multiplies, one m-tile of 16 or two.  The
+// products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums):
+// warp w takes the 32-value steps [w S / NW, (w + 1) S / NW) of K's S
+// steps, lane 4g + t loading the 8 weights W[n0 + g, k + 8t .. k + 8t + 7]
+// of a step at k with one 16-byte (int8: 8, int4: 4) load and the input
+// rows g and g + 8 of each m-tile at the same 8 values straight from global
+// memory (L2), U steps of both in flight before their products (U:
+// kGemvUnroll, half that for two m-tiles or f32 rows, so two blocks fit an
+// SM's registers);
+// values 8t + {0,1,2,3} feed the first mma of the step as its k pairs 2t
+// and 2t + 8, values 8t + {4,5,6,7} the second.  A and B take the same
+// permutation of k, so every output sums the step's 32 products.  Nothing
+// stands before the first loads: a quantized tier's scales go to shared
+// memory while they are in flight, behind the one barrier of the main
+// loop.  Rows >= B and values past K read zeros; columns past N (past I
+// for OUT_SILU) recompute the last one and store nothing.  On a quantized
+// tier each warp sums a scale group into `part` and adds part * scale to
+// its total where the group or its slice ends.  The warps' partial tiles
+// are added in warp order in shared memory, so a row's sum runs in an
+// order fixed by K alone: it does not depend on B, on BR, on y or on the
+// other rows.  OUT_NORM's finisher takes a ticket per row group after a
+// __threadfence (attend_values_kernel's idiom) and resets it to 0.
+template <int IN, int OUT, int BR, int WT>
+__global__ void __launch_bounds__(kGemvWarps * 32)
+gemv_kernel(const void* __restrict__ in, int in_stride,
+            const void* __restrict__ W, const float* __restrict__ wscale,
+            int group, float* out, int out_stride, __nv_bfloat16* rows,
+            const float* __restrict__ lnw, unsigned int* tickets, int B,
+            int K, int N, float eps) {
   constexpr int MT = BR / 16;  // m-tiles of 16 rows
+  // steps loaded before their products: two m-tiles or f32 inputs take
+  // twice the registers, and fewer steps keep two blocks on an SM
+  constexpr int U = IN == IN_F32 || BR == 32 ? kGemvUnroll / 2 : kGemvUnroll;
+  constexpr int IB = IN == IN_BF16 ? 2 : 4;  // bytes of an input value
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = WT == W_BF16 ? 0 : K / group;  // scale groups of a row
   float* red = reinterpret_cast<float*>(smem_raw);  // [warp][tile][m][4][32]
   float* scs = reinterpret_cast<float*>(smem_raw + gemv_red_bytes<BR>());
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
-      smem_raw + gemv_red_bytes<BR>() + gemv_scale_bytes(G));  // [B][stride]
-  const int stride = gemv_row_stride(K);
-  __shared__ float rscale[kRowsPerBlock];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.y * kRowsPerBlock;
-  x += (size_t)row0 * x_stride;
-  out += (size_t)row0 * out_stride;
-  B = min(B - row0, kRowsPerBlock);
-  const int col0 = blockIdx.x * kGemvTiles * 8;
-
-  // the block's weight scales, [tile column][group]
-  if (WT != W_BF16)
-    for (int i = tid; i < kGemvTiles * 8 * G; i += blockDim.x)
-      scs[i] = __ldg(wscale + (size_t)min(col0 + i / G, N - 1) * G + i % G);
-
-  // Prologue: every block builds the bf16 input rows in shared memory from
-  // the f32 rows (L2-resident, a few KB).  Loads are 16 bytes wide and the
-  // loops unrolled so many are in flight: the prologue is latency-bound.
-  if (MODE == IN_RMS) {
-    for (int b = warp; b < B; b += kGemvWarps) {
-      const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * x_stride);
-      float ss = 0.f;
-#pragma unroll 4
-      for (int k4 = lane; k4 < K / 4; k4 += 32) {
-        const float4 v = xr[k4];
-        ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) rscale[b] = rsqrtf(ss / (float)K + eps);
-    }
-    __syncthreads();
-  }
-  const int K8 = K / 8;
-#pragma unroll 4
-  for (int i = tid; i < B * K8; i += blockDim.x) {
-    const int b = i / K8, k = (i - b * K8) * 8;
-    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * x_stride + k);
-    float v[8];
-    *reinterpret_cast<float4*>(v) = xr[0];
-    *reinterpret_cast<float4*>(v + 4) = xr[1];
-    if (MODE == IN_RMS) {
-      const float4* wr = reinterpret_cast<const float4*>(lnw + k);
-      float w[8];
-      *reinterpret_cast<float4*>(w) = wr[0];
-      *reinterpret_cast<float4*>(w + 4) = wr[1];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = (v[j] * rscale[b]) * w[j];
-    } else if (MODE == IN_SILU) {
-      const float4* ur = reinterpret_cast<const float4*>(x + (size_t)b * x_stride + K + k);
-      float u[8];
-      *reinterpret_cast<float4*>(u) = ur[0];
-      *reinterpret_cast<float4*>(u + 4) = ur[1];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = (v[j] / (1.f + expf(-v[j]))) * u[j];
-    }
-    uint4 packed;
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    *reinterpret_cast<uint4*>(xs + (size_t)b * stride + k) = packed;
-  }
-  __syncthreads();
-
   const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kRowsPerBlock;
+  const int Bg = min(B - row0, kRowsPerBlock);  // rows of this group
+  const char* inb = static_cast<const char*>(in) + (size_t)row0 * in_stride * IB;
+  // the block's weight rows: tile j's 8 rows, the lane's row g of them
+  constexpr int HALF = kGemvTiles / 2;
+  const int I = N / 2;  // OUT_SILU: gate columns
+  const int bx = blockIdx.x, col0 = bx * kGemvTiles * 8;
+  auto wcol = [&](int j, int c) {  // weight row of tile j, column c of 8
+    if (OUT == OUT_SILU)
+      return min(bx * HALF * 8 + 8 * (j % HALF) + c, I - 1) +
+             (j < HALF ? 0 : I);
+    return min(col0 + 8 * j + c, N - 1);
+  };
   // bytes of a weight row: 2, 1 or 1/2 a value
   const size_t row_bytes = WT == W_BF16 ? (size_t)K * 2
                            : WT == W_INT8 ? (size_t)K : (size_t)K / 2;
   const char* wrow[kGemvTiles];
 #pragma unroll
-  for (int j = 0; j < kGemvTiles; ++j)  // a ragged last column recomputes N-1
-    wrow[j] = static_cast<const char*>(W) +
-              (size_t)min(col0 + 8 * j + g, N - 1) * row_bytes;
+  for (int j = 0; j < kGemvTiles; ++j)  // a ragged last column recomputes
+    wrow[j] = static_cast<const char*>(W) + (size_t)wcol(j, g) * row_bytes;
   const int steps = (K + 31) / 32;
+  const int s_begin = warp * steps / kGemvWarps;
   const int s_end = (warp + 1) * steps / kGemvWarps;
   float acc[kGemvTiles][MT][4], part[kGemvTiles][MT][4];
 #pragma unroll
@@ -396,33 +510,39 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][m][i] = part[j][m][i] = 0.f;
 
-  for (int s = warp * steps / kGemvWarps; s < s_end; s += kGemvUnroll) {
-    // the weights of kGemvUnroll steps first, so their loads are in flight
-    uint4 raw[kGemvUnroll][kGemvTiles];
+  // every warp runs the first round, whose loads go out before the
+  // barrier that publishes the scales; a warp without steps leaves after it
+  for (int s = s_begin, first = 1; first || s < s_end; s += U, first = 0) {
+    uint4 raw[U][kGemvTiles], xa[U][MT], xb[U][MT];
 #pragma unroll
-    for (int u = 0; u < kGemvUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int k0 = (s + u) * 32 + 8 * t;
+      const bool live = s + u < s_end && k0 < K;
 #pragma unroll
       for (int j = 0; j < kGemvTiles; ++j)
-        raw[u][j] = s + u < s_end && k0 < K ? load_weights8<WT>(wrow[j], k0)
-                                            : make_uint4(0u, 0u, 0u, 0u);
-    }
+        raw[u][j] = live ? load_weights8<WT>(wrow[j], k0)
+                         : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-    for (int u = 0; u < kGemvUnroll; ++u) {
-      if (s + u >= s_end) break;  // uniform over the warp
-      const int k0 = (s + u) * 32 + 8 * t;
-      uint4 xa[MT], xb[MT];  // input rows g and g + 8 of each m-tile
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
+      for (int m = 0; m < MT; ++m) {  // input rows g and g + 8 of m-tile m
         const int r = 16 * m + g;
         const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-        xa[m] = k0 < K && r < B
-                    ? *reinterpret_cast<const uint4*>(xs + (size_t)r * stride + k0)
-                    : zero;
-        xb[m] = k0 < K && r + 8 < B
-                    ? *reinterpret_cast<const uint4*>(xs + (size_t)(r + 8) * stride + k0)
-                    : zero;
+        xa[u][m] = live && r < Bg
+                       ? load_input8<IN>(inb + (size_t)r * in_stride * IB, k0)
+                       : zero;
+        xb[u][m] = live && r + 8 < Bg
+                       ? load_input8<IN>(inb + (size_t)(r + 8) * in_stride * IB, k0)
+                       : zero;
       }
+    }
+    if (first && WT != W_BF16) {  // the block's scales, [tile column][group]
+      for (int i = tid; i < kGemvTiles * 8 * G; i += blockDim.x)
+        scs[i] = __ldg(wscale + (size_t)wcol(i / (8 * G), i / G % 8) * G + i % G);
+      __syncthreads();
+    }
+    if (s >= s_end) break;  // uniform over the warp
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s + u >= s_end) break;  // uniform over the warp
 #pragma unroll
       for (int j = 0; j < kGemvTiles; ++j) {
         const uint4 w = widen_weights8<WT>(raw[u][j]);
@@ -432,8 +552,10 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
           // the running f32 sum with a rounded add: the tensor cores'
           // truncation then reaches 16 products, not the whole slice
           float c1[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16_16x8x16(c1, xa[m].x, xb[m].x, xa[m].y, xb[m].y, w.x, w.y);
-          mma_bf16_16x8x16(c2, xa[m].z, xb[m].z, xa[m].w, xb[m].w, w.z, w.w);
+          mma_bf16_16x8x16(c1, xa[u][m].x, xb[u][m].x, xa[u][m].y, xb[u][m].y,
+                           w.x, w.y);
+          mma_bf16_16x8x16(c2, xa[u][m].z, xb[u][m].z, xa[u][m].w, xb[u][m].w,
+                           w.z, w.w);
           float* c = WT == W_BF16 ? acc[j][m] : part[j][m];
 #pragma unroll
           for (int i = 0; i < 4; ++i) c[i] = (c[i] + c1[i]) + c2[i];
@@ -469,19 +591,47 @@ gemv_kernel(const float* __restrict__ x, int x_stride,
       for (int i = 0; i < 4; ++i)
         red[(((warp * kGemvTiles + j) * MT + m) * 4 + i) * 32 + lane] = acc[j][m][i];
   __syncthreads();
-  for (int o = tid; o < kGemvTiles * BR * 8; o += blockDim.x) {
-    const int j = o / (BR * 8), b = (o / 8) % BR, c = o % 8;
-    const int n = col0 + 8 * j + c;
-    if (b >= B || n >= N) continue;
+  auto tile_sum = [&](int j, int b, int c) {  // output (b, c) of tile j
     const int m = b / 16, i = (b % 16 >= 8 ? 2 : 0) + (c & 1);
     const int src = (j * MT + m) * 4 + i;
     const int ln = 4 * (b % 8) + c / 2;
     float sum = 0.f;
     for (int w = 0; w < kGemvWarps; ++w)
       sum += red[((w * kGemvTiles * MT * 4) + src) * 32 + ln];
-    float* dst = out + (size_t)b * out_stride + n;
-    if (ADD) *dst += sum; else *dst = sum;
+    return sum;
+  };
+  if (OUT == OUT_SILU) {
+    for (int o = tid; o < HALF * BR * 8; o += blockDim.x) {
+      const int j = o / (BR * 8), b = (o / 8) % BR, c = o % 8;
+      const int col = bx * HALF * 8 + 8 * j + c;
+      if (b >= Bg || col >= I) continue;
+      rows[(size_t)(row0 + b) * I + col] = __float2bfloat16_rn(
+          silu_mul(tile_sum(j, b, c), tile_sum(j + HALF, b, c)));
+    }
+    return;
   }
+  out += (size_t)row0 * out_stride;
+  for (int o = tid; o < kGemvTiles * BR * 8; o += blockDim.x) {
+    const int j = o / (BR * 8), b = (o / 8) % BR, c = o % 8;
+    const int n = col0 + 8 * j + c;
+    if (b >= Bg || n >= N) continue;
+    float* dst = out + (size_t)b * out_stride + n;
+    if (OUT == OUT_STORE) *dst = tile_sum(j, b, c);
+    else *dst += tile_sum(j, b, c);
+  }
+  if (OUT != OUT_NORM) return;
+  // the last block of the row group to add builds the group's normed rows
+  __shared__ bool last;
+  __threadfence();  // this block's sums are visible device-wide first
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(tickets + blockIdx.y, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  rms_rows(out, out_stride, lnw, rows + (size_t)row0 * N, Bg, N, eps, warp,
+           lane);
+  if (tid == 0) tickets[blockIdx.y] = 0;  // for the next launch
 }
 
 // The stored scale of one head of an appended row from its absmax `a`, for
@@ -972,73 +1122,96 @@ struct Weights {
   int group;
 };
 
-template <int MODE, bool ADD, int BR, int WT>
-cudaError_t launch_gemv_rows(const float* x, int x_stride, const float* lnw,
-                             Weights wt, float* out, int out_stride, int B,
-                             int K, int N, float eps, cudaStream_t st) {
+template <int IN, int OUT, int BR, int WT>
+cudaError_t launch_gemv_br(const void* in, int in_stride, Weights wt,
+                           float* out, int out_stride, __nv_bfloat16* rows,
+                           const float* lnw, unsigned int* tickets, int B,
+                           int K, int N, float eps, cudaStream_t st) {
   const int G = WT == W_BF16 ? 0 : K / wt.group;
-  const size_t smem = gemv_red_bytes<BR>() + gemv_scale_bytes(G) +
-                      (size_t)(B < kRowsPerBlock ? B : kRowsPerBlock) *
-                          gemv_row_stride(K) * sizeof(__nv_bfloat16);
+  const size_t smem = gemv_red_bytes<BR>() + gemv_scale_bytes(G);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // the attribute is per device, so it is set before every such launch
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<MODE, ADD, BR, WT>,
+        gemv_kernel<IN, OUT, BR, WT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int cols = kGemvTiles * 8;
-  const dim3 grid((N + cols - 1) / cols,
+  // OUT_SILU: a block's columns are gate columns, each with its up column
+  const int cols = (OUT == OUT_SILU ? kGemvTiles / 2 : kGemvTiles) * 8;
+  const int n = OUT == OUT_SILU ? N / 2 : N;
+  const dim3 grid((n + cols - 1) / cols,
                   (B + kRowsPerBlock - 1) / kRowsPerBlock);
-  gemv_kernel<MODE, ADD, BR, WT><<<grid, kGemvWarps * 32, smem, st>>>(
-      x, x_stride, lnw, wt.w, wt.scale, wt.group, out, out_stride, B, K, N,
-      eps);
+  gemv_kernel<IN, OUT, BR, WT><<<grid, kGemvWarps * 32, smem, st>>>(
+      in, in_stride, wt.w, wt.scale, wt.group, out, out_stride, rows, lnw,
+      tickets, B, K, N, eps);
   return cudaGetLastError();
 }
 
 // BR: one m-tile of 16 rows up to 16 rows, two above
-template <int MODE, bool ADD, int WT>
-cudaError_t launch_gemv(const float* x, int x_stride, const float* lnw,
-                        Weights wt, float* out, int out_stride, int B, int K,
+template <int IN, int OUT, int WT>
+cudaError_t launch_gemv(const void* in, int in_stride, Weights wt,
+                        float* out, int out_stride, __nv_bfloat16* rows,
+                        const float* lnw, unsigned int* tickets, int B, int K,
                         int N, float eps, cudaStream_t st) {
   if (B <= 16)
-    return launch_gemv_rows<MODE, ADD, 16, WT>(x, x_stride, lnw, wt, out,
-                                               out_stride, B, K, N, eps, st);
-  return launch_gemv_rows<MODE, ADD, 32, WT>(x, x_stride, lnw, wt, out,
-                                             out_stride, B, K, N, eps, st);
+    return launch_gemv_br<IN, OUT, 16, WT>(in, in_stride, wt, out,
+                                           out_stride, rows, lnw, tickets, B,
+                                           K, N, eps, st);
+  return launch_gemv_br<IN, OUT, 32, WT>(in, in_stride, wt, out, out_stride,
+                                         rows, lnw, tickets, B, K, N, eps,
+                                         st);
 }
 
-// launch_gemv with the prologue, the add and the weight tier given at run
-// time (the one-gemv entry)
+// launch_gemv with the input, the epilogue and the weight tier given at
+// run time (the entries for one gemv)
 template <int WT>
-cudaError_t launch_gemv_any(int mode, bool add, const float* x, int x_stride,
-                            const float* lnw, Weights wt, float* out,
-                            int out_stride, int B, int K, int N, float eps,
-                            cudaStream_t st) {
-#define GEMV_CASE(M, A)                                                      \
-  if (mode == M && add == A)                                                 \
-    return launch_gemv<M, A, WT>(x, x_stride, lnw, wt, out, out_stride, B, K, \
-                                 N, eps, st);
-  GEMV_CASE(IN_NONE, false)
-  GEMV_CASE(IN_NONE, true)
-  GEMV_CASE(IN_RMS, false)
-  GEMV_CASE(IN_RMS, true)
-  GEMV_CASE(IN_SILU, false)
-  GEMV_CASE(IN_SILU, true)
+cudaError_t launch_gemv_any(int in_kind, int out_kind, const void* in,
+                            int in_stride, Weights wt, float* out,
+                            int out_stride, __nv_bfloat16* rows,
+                            const float* lnw, unsigned int* tickets, int B,
+                            int K, int N, float eps, cudaStream_t st) {
+#define GEMV_CASE(IN, OUT)                                                  \
+  if (in_kind == IN && out_kind == OUT)                                     \
+    return launch_gemv<IN, OUT, WT>(in, in_stride, wt, out, out_stride,     \
+                                    rows, lnw, tickets, B, K, N, eps, st);
+  GEMV_CASE(IN_BF16, OUT_STORE)
+  GEMV_CASE(IN_BF16, OUT_ADD)
+  GEMV_CASE(IN_BF16, OUT_NORM)
+  GEMV_CASE(IN_BF16, OUT_SILU)
+  GEMV_CASE(IN_F32, OUT_STORE)
+  GEMV_CASE(IN_F32, OUT_ADD)
 #undef GEMV_CASE
   return cudaErrorInvalidValue;
 }
 
+// The rows pass (gemv_kernel_rows) of `mode` on B rows: a block a group
+cudaError_t launch_rows(int mode, const float* x, int x_stride,
+                        const float* lnw, __nv_bfloat16* rows, int B, int K,
+                        float eps, cudaStream_t st) {
+  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (mode == ROWS_RMS)
+    gemv_kernel_rows<ROWS_RMS><<<blocks, kGemvWarps * 32, 0, st>>>(
+        x, x_stride, lnw, rows, B, K, eps);
+  else
+    gemv_kernel_rows<ROWS_SILU><<<blocks, kGemvWarps * 32, 0, st>>>(
+        x, x_stride, lnw, rows, B, K, eps);
+  return cudaGetLastError();
+}
+
 struct StepArgs {
-  float *x, *qkv, *o, *gu;
+  float *x, *qkv, *o;
+  // the gemvs' prepared bf16 rows: (B, D) normed rows for qkv and gate/up,
+  // then (B, I) silu rows for down
+  __nv_bfloat16* rows;
   const char *wqkv, *wo, *wgu, *wd;         // (L, N, K) of the weight tier
   const float *sqkv, *so, *sgu, *sd;        // (L, N, K / group), or null
   const float *ln1, *ln2, *cosb, *sinb;
   char *kc, *vc;
   const int *cur, *lo;
   // attention scratch: scores (B, H, T), chunk maxima (B, H, S), partials
-  // (B, H, S, Dh + 1) f32; tickets (B * H), zero between launches
+  // (B, H, S, Dh + 1) f32; tickets (B * H), zero between launches, which
+  // the finishing gemvs (wo, down) take too, one a row group
   float *scores, *cmax, *part;
   unsigned int* tickets;
   int B, D, H, Dh, I, L, T, kv_bits, group;
@@ -1073,7 +1246,12 @@ cudaError_t launch_attend(const StepArgs& a, char* kl, char* vl) {
   return cudaGetLastError();
 }
 
-// The layer loop for one weight tier: six launches a layer, seven on kv4.
+// The layer loop for one weight tier: six launches a layer, seven on kv4,
+// and one before the first layer.  Each gemv reads bf16 rows that an
+// earlier launch prepared: layer 0's qkv rows come from the rows pass over
+// the embedding, wo's finisher writes gate/up's rows (ln2 of the new x),
+// gate/up writes down's silu rows, down's finisher the next layer's qkv
+// rows (ln1 of the next layer); wo rounds o as it loads it.
 template <int WT>
 cudaError_t run_layers(const StepArgs& a) {
   const int HD = a.H * a.Dh, D = a.D, I = a.I, B = a.B;
@@ -1091,29 +1269,38 @@ cudaError_t run_layers(const StepArgs& a) {
                    WT == W_BF16 ? nullptr : s + (size_t)l * N * (K / group),
                    group};
   };
-  cudaError_t e;
+  __nv_bfloat16* hrows = a.rows;                   // (B, D)
+  __nv_bfloat16* arows = a.rows + (size_t)B * D;   // (B, I)
+  cudaError_t e = launch_rows(ROWS_RMS, a.x, D, a.ln1, hrows, B, D, a.eps,
+                              a.st);
+  if (e != cudaSuccess) return e;
   for (int l = 0; l < a.L; ++l) {
     char* kl = a.kc + (size_t)l * layer_bytes;
     char* vl = a.vc + (size_t)l * layer_bytes;
-    e = launch_gemv<IN_RMS, false, WT>(
-        a.x, D, a.ln1 + (size_t)l * D, weights(a.wqkv, a.sqkv, l, 3 * HD, D),
-        a.qkv, 3 * HD, B, D, 3 * HD, a.eps, a.st);
+    e = launch_gemv<IN_BF16, OUT_STORE, WT>(
+        hrows, D, weights(a.wqkv, a.sqkv, l, 3 * HD, D), a.qkv, 3 * HD,
+        nullptr, nullptr, nullptr, B, D, 3 * HD, a.eps, a.st);
     if (e != cudaSuccess) return e;
     e = a.kv_bits == KV_INT8   ? launch_attend<KV_INT8>(a, kl, vl)
         : a.kv_bits == KV_INT4 ? launch_attend<KV_INT4>(a, kl, vl)
                                : launch_attend<KV_BF16>(a, kl, vl);
     if (e != cudaSuccess) return e;
-    e = launch_gemv<IN_NONE, true, WT>(a.o, HD, nullptr,
-                                       weights(a.wo, a.so, l, D, HD), a.x, D,
-                                       B, HD, D, a.eps, a.st);
+    e = launch_gemv<IN_F32, OUT_NORM, WT>(
+        a.o, HD, weights(a.wo, a.so, l, D, HD), a.x, D, hrows,
+        a.ln2 + (size_t)l * D, a.tickets, B, HD, D, a.eps, a.st);
     if (e != cudaSuccess) return e;
-    e = launch_gemv<IN_RMS, false, WT>(
-        a.x, D, a.ln2 + (size_t)l * D, weights(a.wgu, a.sgu, l, 2 * I, D),
-        a.gu, 2 * I, B, D, 2 * I, a.eps, a.st);
+    e = launch_gemv<IN_BF16, OUT_SILU, WT>(
+        hrows, D, weights(a.wgu, a.sgu, l, 2 * I, D), nullptr, 0, arows,
+        nullptr, nullptr, B, D, 2 * I, a.eps, a.st);
     if (e != cudaSuccess) return e;
-    e = launch_gemv<IN_SILU, true, WT>(a.gu, 2 * I, nullptr,
-                                       weights(a.wd, a.sd, l, D, I), a.x, D,
-                                       B, I, D, a.eps, a.st);
+    const Weights wd = weights(a.wd, a.sd, l, D, I);
+    e = l + 1 < a.L
+            ? launch_gemv<IN_BF16, OUT_NORM, WT>(
+                  arows, I, wd, a.x, D, hrows, a.ln1 + (size_t)(l + 1) * D,
+                  a.tickets, B, I, D, a.eps, a.st)
+            : launch_gemv<IN_BF16, OUT_ADD, WT>(arows, I, wd, a.x, D,
+                                                nullptr, nullptr, nullptr, B,
+                                                I, D, a.eps, a.st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -1125,7 +1312,7 @@ extern "C" {
 
 // All pointers are device pointers.  Shapes: emb-derived residual x (B, D)
 // f32, updated in place to the pre-final-norm residual; scratch qkv
-// (B, 3*HD), o (B, HD), gu (B, 2*I) f32; weights wqkv (L, 3*HD, D),
+// (B, 3*HD), o (B, HD) f32, rows (B, D + I) bf16; weights wqkv (L, 3*HD, D),
 // wo (L, D, HD), wgu (L, 2*I, D), wd (L, D, I) in bf16 (weight_bits 0), int8
 // (8) or nibbles, K/2 bytes a row (4); for 8 and 4 their scales sqkv, so,
 // sgu, sd (L, N, K / group) f32, group rows of the contraction to a scale;
@@ -1135,9 +1322,10 @@ extern "C" {
 // cur and lo (B,) int32; attention scratch with S = ceil(T / C),
 // C = decode_step_attn_chunk(), of any contents: scores (B, H, T), cmax
 // (B, H, S), part (B, H, S, Dh + 1) f32; tickets (B * H) uint32, zero on
-// entry and left zero, used by no other stream while the step runs.
+// entry and left zero, used by no other stream while the step runs (the
+// attention pair and the gemvs that finish rows take them in turn).
 // Returns the first CUDA error of any launch (0 on success).
-int decode_step_launch(void* x, void* qkv, void* o, void* gu,
+int decode_step_launch(void* x, void* qkv, void* o, void* rows,
                        const void* wqkv, const void* wo, const void* wgu,
                        const void* wd, const void* sqkv, const void* so,
                        const void* sgu, const void* sd, const void* ln1,
@@ -1162,7 +1350,7 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
   a.x = static_cast<float*>(x);
   a.qkv = static_cast<float*>(qkv);
   a.o = static_cast<float*>(o);
-  a.gu = static_cast<float*>(gu);
+  a.rows = static_cast<__nv_bfloat16*>(rows);
   a.wqkv = static_cast<const char*>(wqkv);
   a.wo = static_cast<const char*>(wo);
   a.wgu = static_cast<const char*>(wgu);
@@ -1192,37 +1380,109 @@ int decode_step_launch(void* x, void* qkv, void* o, void* gu,
 }
 
 // One gemv of the step's kind, on its own: out (B, N) (=|+=) in' W^T with
-// the prologue `mode` (0 none, 1 rms with lnw (K,) and eps, 2 silu of
-// x = [gate | up]) on x (B, K) f32 (B, 2K for silu) rows x_stride floats
-// apart, W (N, K) of `weight_bits` (0 bf16, 8 int8, 4 int4 nibbles) with
-// scale (N, K / group) f32 on a quantized tier, out rows out_stride floats
-// apart.  Device pointers; 1 <= B <= 65535, K % 8 == 0, group % 32 == 0 and
-// K % group == 0.  Returns the first CUDA error (0 on success).
+// in' given by `mode` (0: x (B, K) f32 rounded as it is loaded; 1: the rms
+// rows of x with lnw (K,) and eps; 2: the silu rows of x = [gate | up]
+// (B, 2K)), x rows x_stride floats apart, W (N, K) of `weight_bits` (0
+// bf16, 8 int8, 4 int4 nibbles) with scale (N, K / group) f32 on a
+// quantized tier, out rows out_stride floats apart.  Modes 1 and 2 build
+// their bf16 rows into `rows` (B, K) with a rows pass first (two
+// launches).  Device pointers; 1 <= B <= 65535, K % 8 == 0, group % 32 ==
+// 0 and K % group == 0.  Returns the first CUDA error (0 on success).
 int decode_step_gemv(const void* x, int x_stride, const void* lnw,
                      const void* w, const void* scale, int group, void* out,
-                     int out_stride, int B, int K, int N, int mode, int add,
-                     int weight_bits, float eps, void* stream) {
+                     int out_stride, void* rows, int B, int K, int N,
+                     int mode, int add, int weight_bits, float eps,
+                     void* stream) {
   const bool quant = weight_bits != W_BF16;
-  if (B < 1 || B > kMaxB || K < 8 || K % 8 || N < 1 || mode < IN_NONE ||
-      mode > IN_SILU || (mode == IN_RMS && !lnw) || x_stride % 4 ||
-      x_stride < (mode == IN_SILU ? 2 * K : K) || out_stride < N ||
+  if (B < 1 || B > kMaxB || K < 8 || K % 8 || N < 1 || mode < 0 ||
+      mode > ROWS_SILU || (mode == ROWS_RMS && !lnw) || (mode && !rows) ||
+      x_stride % 4 || x_stride < (mode == ROWS_SILU ? 2 * K : K) ||
+      out_stride < N ||
       (weight_bits != W_BF16 && weight_bits != W_INT8 &&
        weight_bits != W_INT4) ||
       (quant && (group < 32 || group % 32 || K % group || !scale)))
     return (int)cudaErrorInvalidValue;
   const Weights wt{w, static_cast<const float*>(scale), quant ? group : 1};
   const float* xf = static_cast<const float*>(x);
-  const float* lf = static_cast<const float*>(lnw);
   float* of = static_cast<float*>(out);
+  __nv_bfloat16* rb = static_cast<__nv_bfloat16*>(rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* in = x;
+  int in_kind = IN_F32, in_stride = x_stride;
+  if (mode) {
+    cudaError_t e = launch_rows(mode, xf, x_stride,
+                                static_cast<const float*>(lnw), rb, B, K,
+                                eps, st);
+    if (e != cudaSuccess) return (int)e;
+    in = rows, in_kind = IN_BF16, in_stride = K;
+  }
+  const int out_kind = add ? OUT_ADD : OUT_STORE;
+  if (weight_bits == W_INT8)
+    return (int)launch_gemv_any<W_INT8>(in_kind, out_kind, in, in_stride, wt,
+                                        of, out_stride, nullptr, nullptr,
+                                        nullptr, B, K, N, eps, st);
+  if (weight_bits == W_INT4)
+    return (int)launch_gemv_any<W_INT4>(in_kind, out_kind, in, in_stride, wt,
+                                        of, out_stride, nullptr, nullptr,
+                                        nullptr, B, K, N, eps, st);
+  return (int)launch_gemv_any<W_BF16>(in_kind, out_kind, in, in_stride, wt,
+                                      of, out_stride, nullptr, nullptr,
+                                      nullptr, B, K, N, eps, st);
+}
+
+// The rows pass on its own: rows (B, K) bf16 from x (B, K) f32 with lnw
+// (K,) for mode 1 (rms), from x = [gate | up] (B, 2K) for mode 2 (silu), x
+// rows x_stride floats apart.  Device pointers; 1 <= B <= 65535, K % 8 ==
+// 0.  Returns the CUDA error (0 on success).
+int decode_step_rows(const void* x, int x_stride, const void* lnw,
+                     void* rows, int B, int K, int mode, float eps,
+                     void* stream) {
+  if (B < 1 || B > kMaxB || K < 8 || K % 8 || x_stride % 4 ||
+      (mode != ROWS_RMS && mode != ROWS_SILU) || (mode == ROWS_RMS && !lnw) ||
+      x_stride < (mode == ROWS_SILU ? 2 * K : K))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_rows(mode, static_cast<const float*>(x), x_stride,
+                          static_cast<const float*>(lnw),
+                          static_cast<__nv_bfloat16*>(rows), B, K, eps,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// One gemv as the step launches it, on prepared bf16 rows in (B, K): the
+// epilogue `out_kind` (0 out = y, 1 out += y, 2 out += y and rows_out
+// (B, N) bf16 = the rms rows of the new out with lnw (N,), 3 rows_out
+// (B, N / 2) bf16 = silu(y[:, :N/2]) * y[:, N/2:]), y = in W^T; out (B, N)
+// f32 contiguous (unused by 3); tickets (ceil(B / 32)) zero, left zero.
+// W and scale as decode_step_gemv takes them.  Returns the first CUDA
+// error (0 on success).
+int decode_step_gemv_rows(const void* in, const void* w, const void* scale,
+                          int group, void* out, void* rows_out,
+                          const void* lnw, void* tickets, int B, int K,
+                          int N, int out_kind, int weight_bits, float eps,
+                          void* stream) {
+  const bool quant = weight_bits != W_BF16;
+  if (B < 1 || B > kMaxB || K < 8 || K % 8 || N < 1 || out_kind < OUT_STORE ||
+      out_kind > OUT_SILU || (out_kind != OUT_SILU && !out) ||
+      (out_kind >= OUT_NORM && !rows_out) ||
+      (out_kind == OUT_NORM && (!lnw || !tickets || N % 8)) ||
+      (out_kind == OUT_SILU && N % 2) ||
+      (weight_bits != W_BF16 && weight_bits != W_INT8 &&
+       weight_bits != W_INT4) ||
+      (quant && (group < 32 || group % 32 || K % group || !scale)))
+    return (int)cudaErrorInvalidValue;
+  const Weights wt{w, static_cast<const float*>(scale), quant ? group : 1};
+  float* of = static_cast<float*>(out);
+  __nv_bfloat16* rb = static_cast<__nv_bfloat16*>(rows_out);
+  const float* lf = static_cast<const float*>(lnw);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (weight_bits == W_INT8)
-    return (int)launch_gemv_any<W_INT8>(mode, add, xf, x_stride, lf, wt, of,
-                                        out_stride, B, K, N, eps, st);
+    return (int)launch_gemv_any<W_INT8>(IN_BF16, out_kind, in, K, wt, of, N,
+                                        rb, lf, tk, B, K, N, eps, st);
   if (weight_bits == W_INT4)
-    return (int)launch_gemv_any<W_INT4>(mode, add, xf, x_stride, lf, wt, of,
-                                        out_stride, B, K, N, eps, st);
-  return (int)launch_gemv_any<W_BF16>(mode, add, xf, x_stride, lf, wt, of,
-                                      out_stride, B, K, N, eps, st);
+    return (int)launch_gemv_any<W_INT4>(IN_BF16, out_kind, in, K, wt, of, N,
+                                        rb, lf, tk, B, K, N, eps, st);
+  return (int)launch_gemv_any<W_BF16>(IN_BF16, out_kind, in, K, wt, of, N, rb,
+                                      lf, tk, B, K, N, eps, st);
 }
 
 // One layer's kv4 append on its own (the step's seventh launch on the int4

@@ -41,9 +41,16 @@ combinations are three gemv instantiations times three attention ones.
   :data:`decode_step_tp`, is one ``decode_step`` span
   (``utils/profiling.py``).
 * :data:`gemv` launches one of the step's gemvs on its own (the kernel's
-  entry for tests and timing, counted in ``decode_step.gemv_launches``);
-  :func:`gemv_plain` is its plain version and :func:`gemv_tolerance` the
-  error bound the kernel is held to.  :data:`kv4_append` likewise launches
+  entry for tests and timing, counted in ``decode_step.gemv_launches``),
+  building its own bf16 input rows first; :func:`gemv_plain` is its plain
+  version and :func:`gemv_tolerance` the error bound the kernel is held
+  to.  Inside the step each gemv reads bf16 rows that another launch
+  prepared (:func:`gemv_rows_plain` is how they are built);
+  :meth:`DecodeStep.rows` and :meth:`DecodeStep.gemv_on_rows` launch the
+  rows pass and a gemv with the step's epilogues on their own, for tests.
+  ``decode_step.gemv_prepared`` counts gemvs that read prepared rows (4 L
+  a step) and ``gemv_rebuilt`` those that built their own (the one-gemv
+  entry).  :data:`kv4_append` likewise launches
   the kv4 cache's append alone (``decode_step.kv4_append_launches``), with
   :func:`kv4_append_plain` as its plain version.  The step never calls
   them.
@@ -75,11 +82,13 @@ row attention reads (W on bf16; the values and one 32-byte sector of head
 scales on kv8 and kv4).  The kernel's design is described at the top of
 ``csrc/decode_step.cu``: per layer four gemvs and the attention pair
 (scores, then values over chunks of :attr:`DecodeStep.attn_chunk` keys, as
-the library was built), six launches, seven on kv4, at any batch width:
-the gemv takes its rows in groups of 32 (a weight is read once a group)
-and a row's result does not depend on the batch.  The wrapper allocates
-the pair's scratch on every call and keeps its tickets (one counter per
-(row, head), which the kernel leaves at zero) per device and stream; a
+the library was built), six launches, seven on kv4, and one rows pass a
+step, at any batch width: the gemv takes its rows in groups of 32 (a
+weight is read once a group) and a row's result does not depend on the
+batch.  The wrapper allocates the pair's scratch and the
+gemvs' bf16 rows on every call and keeps the tickets (one counter per
+(row, head), which the kernels leave at zero; the gemvs that build normed
+rows take one a row group of the same buffer) per device and stream; a
 step captured into a CUDA graph takes the graph's own.
 """
 
@@ -269,6 +278,9 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 # the gemv's prologues (``mode`` of :func:`gemv`): the input as given, its
 # rms norm times ``lnw``, or silu(gate) * up of x = [gate | up]
 GEMV_NONE, GEMV_RMS, GEMV_SILU = 0, 1, 2
+# what a gemv of the step does with its sums (:meth:`DecodeStep.gemv_on_rows`,
+# the kernel's OUT_* numbers)
+GEMV_EPILOGUES = {"store": 0, "add": 1, "norm": 2, "silu": 3}
 
 
 def _gemv_input(x: torch.Tensor, lnw, mode: int, eps: float) -> torch.Tensor:
@@ -279,6 +291,45 @@ def _gemv_input(x: torch.Tensor, lnw, mode: int, eps: float) -> torch.Tensor:
         g, u = x.chunk(2, dim=-1)
         return g * torch.sigmoid(g) * u
     return x
+
+
+def gemv_rows_plain(x: torch.Tensor, lnw, mode: int, eps: float = 1e-6
+                    ) -> torch.Tensor:
+    """The bf16 input rows (B, K) the kernel's gemvs multiply, built as the
+    kernel builds them (``gemv_kernel_rows``, and the finishing and
+    gate/up epilogues of the step's gemvs), so that on the card the two
+    agree bit for bit.  :data:`GEMV_RMS`: x (B, K) f32 times rsqrt(mean of
+    the squares + eps) times ``lnw``, with the squares summed in the
+    kernel's order: lane l of a warp adds, for the float4s l, l + 32, ...
+    of the row, ((x0^2 + x1^2) + x2^2) + x3^2, and the 32 lane sums meet in
+    a butterfly (lane ^ 16, ^ 8, ..., ^ 1), every step rounded to f32.
+    :data:`GEMV_SILU`: x = [gate | up] (B, 2K), (g / (1 + exp(-g))) * u.
+    The same rows as :func:`_gemv_input` rounded to bf16, but for an
+    element that lies within the f32 rounding of the two orders of a bf16
+    tie, which may round to the other neighbour."""
+    if mode == GEMV_SILU:
+        K = x.shape[1] // 2
+        g, u = x[:, :K], x[:, K:]
+        return ((g / (1 + torch.exp(-g))) * u).to(torch.bfloat16)
+    if mode != GEMV_RMS:
+        raise ValueError(f"the rows pass builds rms (1) or silu (2) rows, "
+                         f"not mode {mode}")
+    B, K = x.shape
+    sq = (x * x).reshape(B, K // 4, 4)
+    terms = ((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3]
+    rounds = -(-(K // 4) // 32)
+    terms = torch.nn.functional.pad(terms, (0, 32 * rounds - K // 4))
+    lanes = torch.zeros((B, 32), dtype=x.dtype, device=x.device)
+    for i in range(rounds):
+        lanes = lanes + terms[:, 32 * i:32 * (i + 1)]
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, lane ^ o]
+    ss = lanes[:, :1]
+    # a tensor divisor: torch divides by a scalar through its reciprocal
+    # on the card, the kernel as IEEE does
+    rscale = torch.rsqrt(ss / torch.full_like(ss, K) + eps)
+    return ((x * rscale) * lnw[None, :]).to(torch.bfloat16)
 
 
 def _gemv_geometry(x: torch.Tensor, lnw, w: torch.Tensor, scale, group: int,
@@ -632,6 +683,13 @@ class DecodeStep:
         the card."""
         self.variant_launches = dict.fromkeys(VARIANTS, 0)
         self.gemv_launches = 0  # launches of the one-gemv entry
+        # gemvs that read rows another kernel prepared (4 L a step: the
+        # rows pass, the finishers and gate/up build them), and gemvs that
+        # built their own rows (every call of the one-gemv entry)
+        self.gemv_prepared = 0
+        self.gemv_rebuilt = 0
+        self.rows_launches = 0  # launches of the one-rows-pass entry
+        self.gemv_rows_launches = 0  # launches of the step-gemv entry
         self.kv4_append_launches = 0  # launches of the one-append entry
         self.attend_launches = 0  # launches of the one-layer attention entry
         # tensor-parallel steps (:meth:`tp`) by variant, one per step
@@ -639,6 +697,8 @@ class DecodeStep:
         self.library = CudaLibrary("decode_step.cu", defines)
         self._chunk = None
         self._tickets: Dict[tuple, torch.Tensor] = {}
+        # gemvs a step of each variant runs, from its last capture
+        self._captured_gemvs: Dict[str, int] = {}
 
     @property
     def launches(self) -> int:
@@ -666,9 +726,12 @@ class DecodeStep:
         :data:`GEMV_SILU` of x = [gate | up]) of x (B, K) f32 ((B, 2K) for
         silu), W (N, K) bf16, (N, K) int8 or (N, K/2) int4 nibbles with
         ``scale`` (N, K / group) f32.  CUDA tensors launch ``gemv_kernel``
-        (counted in ``gemv_launches``), CPU tensors take
+        (counted in ``gemv_launches`` and ``gemv_rebuilt``), after
+        ``gemv_kernel_rows`` for the rms and silu prologues, which builds
+        the bf16 rows in scratch of its own; CPU tensors take
         :func:`gemv_plain`; returns ``out``.  The step does not call this:
-        it is the kernel's entry for tests and timing."""
+        it is the kernel's entry for tests, timing and the tensor-parallel
+        step."""
         K, bits = _gemv_geometry(x, lnw, w, scale, group, out, mode)
         tensors = [t for t in (x, lnw, w, scale, out) if t is not None]
         if any(t.device != x.device for t in tensors):
@@ -686,19 +749,156 @@ class DecodeStep:
         fn = self.library.get().decode_step_gemv
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p]
+                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+        rows = (None if mode == GEMV_NONE else
+                torch.empty((x.shape[0], K), dtype=torch.bfloat16,
+                            device=x.device))
         stream = torch.cuda.current_stream(x.device)
         err = fn(x.data_ptr(), x.shape[1],
                  None if lnw is None else lnw.data_ptr(), w.data_ptr(),
                  scale.data_ptr() if bits else None, group if bits else 1,
-                 out.data_ptr(), out.shape[1], x.shape[0], K, w.shape[0],
-                 mode, int(bool(add)), bits, eps, stream.cuda_stream)
+                 out.data_ptr(), out.shape[1],
+                 None if rows is None else rows.data_ptr(), x.shape[0], K,
+                 w.shape[0], mode, int(bool(add)), bits, eps,
+                 stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"decode_step_gemv failed with CUDA error "
                                f"{err}")
         self.gemv_launches += 1
+        self.gemv_rebuilt += 1
         return out
+
+    def rows(self, x: torch.Tensor, lnw, mode: int,
+             eps: float = 1e-6) -> torch.Tensor:
+        """The rows pass on its own: the bf16 rows (B, K) that a gemv with
+        the prologue ``mode`` (:data:`GEMV_RMS` with ``lnw`` (K,), or
+        :data:`GEMV_SILU` of x = [gate | up]) multiplies, from x (B, K)
+        f32 ((B, 2K) for silu).  CUDA tensors launch ``gemv_kernel_rows``
+        (counted in ``rows_launches``), CPU tensors take
+        :func:`gemv_rows_plain`.  The kernel's entry for tests: the step
+        runs the same pass on its layer-0 rows."""
+        if mode not in (GEMV_RMS, GEMV_SILU):
+            raise ValueError(f"the rows pass builds rms (1) or silu (2) "
+                             f"rows, not mode {mode}")
+        if x.ndim != 2 or x.dtype != torch.float32:
+            raise ValueError("x must be a (B, K) float32 tensor, (B, 2K) for "
+                             "silu")
+        B = x.shape[0]
+        K = x.shape[1] // 2 if mode == GEMV_SILU else x.shape[1]
+        if not 1 <= B <= MAX_ROWS or K < 8 or K % 8 or (
+                mode == GEMV_SILU and x.shape[1] != 2 * K):
+            raise ValueError(f"the rows pass takes 1 to {MAX_ROWS} rows and "
+                             f"K a multiple of 8, not x {tuple(x.shape)}")
+        if mode == GEMV_RMS and (lnw is None or lnw.dtype != torch.float32
+                                 or tuple(lnw.shape) != (K,)
+                                 or lnw.device != x.device):
+            raise ValueError(f"lnw must be ({K},) float32 beside x")
+        if x.device.type == "cpu":
+            return gemv_rows_plain(x, lnw, mode, eps)
+        if x.device.type != "cuda":
+            raise ValueError(f"the rows pass runs on cuda or cpu, not "
+                             f"{x.device}")
+        if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in (x, lnw) if t is not None):
+            raise ValueError("the rows pass's tensors must be contiguous "
+                             "and 16-byte aligned")
+        rows = torch.empty((B, K), dtype=torch.bfloat16, device=x.device)
+        fn = self.library.get().decode_step_rows
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                               ctypes.c_void_p])
+        stream = torch.cuda.current_stream(x.device)
+        err = fn(x.data_ptr(), x.shape[1],
+                 None if lnw is None else lnw.data_ptr(), rows.data_ptr(), B,
+                 K, mode, eps, stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"decode_step_rows failed with CUDA error "
+                               f"{err}")
+        self.rows_launches += 1
+        return rows
+
+    def gemv_on_rows(self, rows: torch.Tensor, w: torch.Tensor, scale,
+                     group: int, out, epilogue: str, lnw=None,
+                     eps: float = 1e-6):
+        """One gemv as the step launches it, on prepared bf16 ``rows``
+        (B, K), y = rows W^T, W and ``scale`` as :meth:`gemv` takes them.
+        ``epilogue`` (:data:`GEMV_EPILOGUES`): "store" writes y into
+        ``out`` (B, N) f32, "add" adds it; "norm" adds it and returns the
+        rms rows of the new ``out`` with ``lnw`` (N,) (bf16 (B, N), built
+        by the launch's last block of each row group); "silu" returns
+        bf16 (B, N/2) silu(y[:, :N/2]) * y[:, N/2:] (``out`` None).  CUDA
+        tensors launch ``gemv_kernel`` (counted in
+        ``gemv_rows_launches``), CPU tensors take :func:`_mm` and
+        :func:`gemv_rows_plain`.  Returns ``out`` or the rows built.  The
+        kernel's entry for tests: the step runs the same launches."""
+        if epilogue not in GEMV_EPILOGUES:
+            raise ValueError(f"epilogue must be one of "
+                             f"{sorted(GEMV_EPILOGUES)}, not {epilogue!r}")
+        if rows.ndim != 2 or rows.dtype != torch.bfloat16:
+            raise ValueError("rows must be a (B, K) bf16 tensor")
+        B, K = rows.shape
+        probe = torch.empty((B, w.shape[0] if w.ndim == 2 else 0),
+                            device="meta")
+        _gemv_geometry(torch.empty((B, K), device="meta"), None, w, scale,
+                       group, probe, GEMV_NONE)
+        N = w.shape[0]
+        if epilogue == "silu":
+            if out is not None or N % 2:
+                raise ValueError("the silu epilogue takes an even N and no "
+                                 "out")
+        elif (out is None or tuple(out.shape) != (B, N)
+              or out.dtype != torch.float32):
+            raise ValueError(f"out must be ({B}, {N}) float32")
+        if epilogue == "norm" and (
+                lnw is None or tuple(lnw.shape) != (N,)
+                or lnw.dtype != torch.float32 or N % 8):
+            raise ValueError(f"the norm epilogue takes lnw ({N},) float32 "
+                             f"and N a multiple of 8")
+        tensors = [t for t in (rows, w, scale, out, lnw) if t is not None]
+        if any(t.device != rows.device for t in tensors):
+            raise ValueError("the gemv's tensors must be on one device")
+        bits = 0 if w.dtype == torch.bfloat16 else (8 if w.shape[1] == K
+                                                     else 4)
+        if rows.device.type == "cpu":
+            y = _mm(rows.float(), w, scale if bits else None)
+            if epilogue == "silu":
+                return gemv_rows_plain(y, None, GEMV_SILU)
+            out.copy_(y if epilogue == "store" else out + y)
+            return (gemv_rows_plain(out, lnw, GEMV_RMS, eps)
+                    if epilogue == "norm" else out)
+        if rows.device.type != "cuda":
+            raise ValueError(f"the gemv runs on cuda or cpu, not "
+                             f"{rows.device}")
+        if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in tensors):
+            raise ValueError("the gemv's tensors must be contiguous and "
+                             "16-byte aligned")
+        dev = rows.device
+        built = None
+        if epilogue in ("norm", "silu"):
+            width = N // 2 if epilogue == "silu" else N
+            built = torch.empty((B, width), dtype=torch.bfloat16, device=dev)
+        tickets = (torch.zeros(-(-B // 32), dtype=torch.int32, device=dev)
+                   if epilogue == "norm" else None)
+        fn = self.library.get().decode_step_gemv_rows
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(dev)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = fn(rows.data_ptr(), w.data_ptr(), ptr(scale if bits else None),
+                 group if bits else 1, ptr(out), ptr(built), ptr(lnw),
+                 ptr(tickets), B, K, N, GEMV_EPILOGUES[epilogue], bits, eps,
+                 stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"decode_step_gemv_rows failed with CUDA "
+                               f"error {err}")
+        self.gemv_rows_launches += 1
+        return out if built is None else built
 
     def kv4_append(self, qkv: torch.Tensor, cos: torch.Tensor,
                    sin: torch.Tensor, k_rows: torch.Tensor,
@@ -905,8 +1105,10 @@ class DecodeStep:
 
     def replayed(self, variant: str) -> None:
         """Count one replay of a step captured into a CUDA graph under its
-        variant: a captured launch counts when the graph runs it."""
+        variant, and its gemvs as the variant's last capture ran them: a
+        captured launch counts when the graph runs it."""
         self.variant_launches[variant] += 1
+        self.gemv_prepared += self._captured_gemvs.get(variant, 0)
 
     def __call__(self, packed: dict, emb: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -986,7 +1188,8 @@ class DecodeStep:
         lo32 = lo.to(device=dev, dtype=torch.int32).contiguous()
         qkv = torch.empty((B, 3 * HD), dtype=torch.float32, device=dev)
         o = torch.empty((B, HD), dtype=torch.float32, device=dev)
-        gu = torch.empty((B, 2 * I), dtype=torch.float32, device=dev)
+        # the gemvs' prepared bf16 rows: (B, D) normed, then (B, I) silu
+        rows = torch.empty(B * (D + I), dtype=torch.bfloat16, device=dev)
         S = -(-T // self.attn_chunk)
         scores = torch.empty((B, H, T), dtype=torch.float32, device=dev)
         cmax = torch.empty((B, H, S), dtype=torch.float32, device=dev)
@@ -1005,7 +1208,7 @@ class DecodeStep:
             raise ValueError(f"tickets must be int32 on {dev}, at least "
                              f"{B * H}")
         err = self._fn()(
-            x.data_ptr(), qkv.data_ptr(), o.data_ptr(), gu.data_ptr(),
+            x.data_ptr(), qkv.data_ptr(), o.data_ptr(), rows.data_ptr(),
             *(packed[name].data_ptr() for name in MATRICES), *scales,
             packed["ln1"].data_ptr(), packed["ln2"].data_ptr(),
             cos.data_ptr(), sin.data_ptr(), k_cache.data_ptr(),
@@ -1016,8 +1219,11 @@ class DecodeStep:
         if err != 0:
             raise RuntimeError(f"decode_step_launch failed with CUDA error "
                                f"{err}")
-        if not capturing:
+        if capturing:
+            self._captured_gemvs[variant] = 4 * L
+        else:
             self.variant_launches[variant] += 1
+            self.gemv_prepared += 4 * L
         return x
 
 

@@ -349,9 +349,12 @@ def _kernel_events(fn):
 
 
 # the step's kernels by the row each launch gets: the gemv's instantiation
-# <mode, add, ...> names its matrix; qkv and gate/up share mode 1, and the
-# one that the attention (or the kv4 append) follows is qkv
-GEMV_ROWS = {"0": "gemv wo", "2": "gemv down"}
+# <input, epilogue, ...> names its matrix (qkv stores from prepared rows,
+# wo reads f32 rows, gate/up ends in silu rows, down adds from prepared
+# rows); the rows pass (layer 0's qkv rows) has a row of its own
+GEMV_ROWS = {("1", "2"): "gemv wo", ("0", "3"): "gemv gate/up",
+             ("0", "2"): "gemv down", ("0", "1"): "gemv down",
+             ("0", "0"): "gemv qkv"}
 ATTN_ROWS = ("attend_scores", "attend_values")
 
 
@@ -359,14 +362,13 @@ def _kernel_rows_of(names):
     """The row of each launch of a run of steps (see GEMV_ROWS), None for
     a kernel of the wrapper's torch ops."""
     rows = []
-    for i, name in enumerate(names):
+    for name in names:
         row = None
-        if name.startswith("gemv_kernel<"):
-            mode = name[len("gemv_kernel<")]
-            after = names[i + 1] if i + 1 < len(names) else ""
-            row = GEMV_ROWS.get(mode) or (
-                "gemv qkv" if after.startswith(ATTN_ROWS + ("kv4_append",))
-                else "gemv gate/up")
+        if name.startswith("gemv_kernel_rows"):
+            row = "gemv rows pass"
+        elif name.startswith("gemv_kernel<"):
+            args = [a.strip() for a in name[name.index("<") + 1:].split(",")]
+            row = GEMV_ROWS.get((args[0], args[1]))
         for kernel in ATTN_ROWS + ("kv4_append_kernel",):
             if name.startswith(kernel):
                 row = kernel

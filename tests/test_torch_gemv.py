@@ -158,3 +158,100 @@ def test_gemv_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="K"):        # w of another width
         ds.gemv(x, None, w[:, :32].contiguous(), None, 0, out,
                 ds.GEMV_NONE, False)
+
+
+def _bf16_steps(a, b):
+    """|a - b| in bf16 steps, element by element (same signs)."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+@pytest.mark.parametrize("mode", ["rms", "silu"])
+@pytest.mark.parametrize("B,K", [(1, 64), (7, 200), (33, 768)])
+def test_rows_plain_is_the_prologue_arithmetic(mode, B, K):
+    """The bf16 rows the kernel builds once a gemv (``gemv_rows_plain``)
+    are the former prologue's: silu rows bit for bit its
+    (g / (1 + exp(-g))) * u; rms rows within one bf16 step of ``_rms``
+    rounded to bf16 (the squares are summed in the kernel's order), and bit
+    for bit where every square and sum is exact in any order."""
+    x, lnw, _, _ = _inputs(B, K, 8, seed=B + K)
+    xt, lt = torch.from_numpy(x), torch.from_numpy(lnw)
+    if mode == "silu":
+        g, u = xt[:, :K], xt[:, K:]
+        got = ds.gemv_rows_plain(xt, None, ds.GEMV_SILU)
+        assert torch.equal(got, ((g / (1 + torch.exp(-g))) * u).bfloat16())
+        want = ds._gemv_input(xt, None, ds.GEMV_SILU, EPS).bfloat16()
+        assert int(_bf16_steps(got, want).max()) <= 1
+        return
+    xt = xt[:, :K].contiguous()
+    got = ds.gemv_rows_plain(xt, lt, ds.GEMV_RMS, EPS)
+    want = ds._bf(ds._rms(xt, lt, EPS)).bfloat16()
+    assert got.shape == (B, K) and got.dtype == torch.bfloat16
+    assert int(_bf16_steps(got, want).max()) <= 1
+    assert int((got != want).sum()) <= max(1, got.numel() // 100)
+    small = torch.from_numpy(np.random.default_rng(K).integers(
+        -3, 4, (B, K)).astype(np.float32))
+    assert torch.equal(ds.gemv_rows_plain(small, lt, ds.GEMV_RMS, EPS),
+                       ds._bf(ds._rms(small, lt, EPS)).bfloat16())
+
+
+def test_rows_plain_of_a_row_does_not_depend_on_the_batch():
+    """A row's bf16 rows are its own: rows of a 40-row call equal the same
+    rows built alone and among 5, bit for bit."""
+    x, lnw, _, _ = _inputs(40, 200, 8, seed=11)
+    xt, lt = torch.from_numpy(x[:, :200].copy()), torch.from_numpy(lnw)
+    rows = ds.gemv_rows_plain(xt, lt, ds.GEMV_RMS, EPS)
+    for sl in (slice(0, 1), slice(31, 32), slice(30, 35), slice(39, 40)):
+        assert torch.equal(ds.gemv_rows_plain(xt[sl], lt, ds.GEMV_RMS, EPS),
+                           rows[sl])
+
+
+@pytest.mark.parametrize("epilogue", ["store", "add", "norm", "silu"])
+def test_gemv_on_rows_on_cpu_tensors(epilogue):
+    """The step's gemv on prepared rows takes the plain version on the CPU
+    and launches nothing: ``_mm`` of the rows, then the epilogue's rows
+    through ``gemv_rows_plain``; the prepared rows give the same sums as
+    ``gemv_plain`` on f32 rows of the same values."""
+    B, K, N = 5, 64, 48
+    x, lnw, w, out = _inputs(B, K, N, seed=5)
+    rows = torch.from_numpy(x[:, :K].copy()).bfloat16()
+    wt = torch.from_numpy(w).bfloat16()
+    ot = torch.from_numpy(out)
+    lt = torch.from_numpy(lnw[:1].repeat(N))
+    step = ds.decode_step
+    before = step.gemv_rows_launches
+    y = ds.gemv_plain(rows.float(), None, wt, None, 0, ot, ds.GEMV_NONE,
+                      False)
+    o = None if epilogue == "silu" else ot.clone()
+    got = step.gemv_on_rows(rows, wt, None, 0, o, epilogue, lt, EPS)
+    if epilogue == "store":
+        assert got is o and torch.equal(o, y)
+    elif epilogue == "add":
+        assert got is o and torch.equal(o, ot + y)
+    elif epilogue == "norm":
+        assert torch.equal(o, ot + y)
+        assert torch.equal(got, ds.gemv_rows_plain(ot + y, lt, ds.GEMV_RMS,
+                                                   EPS))
+    else:
+        assert torch.equal(got, ds.gemv_rows_plain(y, None, ds.GEMV_SILU))
+        assert got.shape == (B, N // 2)
+    assert step.gemv_rows_launches == before
+
+
+def test_rows_entry_on_cpu_and_what_it_does_not_take():
+    x, lnw, _, _ = _inputs(3, 64, 8)
+    xt, lt = torch.from_numpy(x[:, :64].copy()), torch.from_numpy(lnw)
+    before = ds.decode_step.rows_launches
+    assert torch.equal(ds.decode_step.rows(xt, lt, ds.GEMV_RMS, EPS),
+                       ds.gemv_rows_plain(xt, lt, ds.GEMV_RMS, EPS))
+    assert ds.decode_step.rows_launches == before
+    with pytest.raises(ValueError, match="mode"):
+        ds.decode_step.rows(xt, lt, ds.GEMV_NONE)
+    with pytest.raises(ValueError, match="lnw"):
+        ds.decode_step.rows(xt, None, ds.GEMV_RMS)
+    with pytest.raises(ValueError, match="epilogue"):
+        ds.decode_step.gemv_on_rows(xt.bfloat16(), torch.zeros(
+            (8, 64), dtype=torch.bfloat16), None, 0, None, "max")
+    with pytest.raises(ValueError, match="lnw"):
+        ds.decode_step.gemv_on_rows(xt.bfloat16(), torch.zeros(
+            (8, 64), dtype=torch.bfloat16), None, 0, torch.zeros((3, 8)),
+            "norm")

@@ -181,3 +181,122 @@ def test_gemv_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         ds.gemv(x.cpu(), lnw, w, scale, 64, out, ds.GEMV_NONE, False)
     assert ds.decode_step.gemv_launches == before
+
+
+# the step's prepared rows: rows of every row-group shape, on every tier
+PREPARED_ROWS = [1, 8, 16, 33, 64, 96, 128]
+
+
+def _ulps(a, b):
+    """|a - b| in bf16 steps, element by element (same signs)."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", PREPARED_ROWS)
+@pytest.mark.parametrize("bits", TIERS)
+def test_prepared_silu_rows_equal_the_prologue_rows(cuda, bits, B):
+    """The gate/up gemv's epilogue writes down's bf16 input rows,
+    silu(gate) * up, equal bit for bit to the rows that the rows pass (the
+    former prologue's arithmetic) and the plain version on the card build
+    from the same gemv's f32 sums."""
+    N, K, _, _ = FULL["gate/up"]
+    group = FULL_GROUP[bits]
+    x, lnw, w, scale, _ = _case(cuda, B, N, K, ds.GEMV_RMS, bits, group,
+                                seed=B)
+    h = ds.decode_step.rows(x, lnw, ds.GEMV_RMS)
+    gu = ds.decode_step.gemv_on_rows(h, w, scale, group,
+                                     torch.empty((B, N), device=cuda),
+                                     "store")
+    a = ds.decode_step.gemv_on_rows(h, w, scale, group, None, "silu")
+    torch.cuda.synchronize()
+    assert a.shape == (B, N // 2) and a.dtype == torch.bfloat16
+    assert torch.equal(a, ds.decode_step.rows(gu, None, ds.GEMV_SILU))
+    assert torch.equal(a, ds.gemv_rows_plain(gu, None, ds.GEMV_SILU))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", PREPARED_ROWS)
+@pytest.mark.parametrize("bits", TIERS)
+def test_prepared_rms_rows_equal_the_plain_rows(cuda, bits, B):
+    """A gemv that adds into the residual (down here) ends with the normed
+    bf16 rows of the new residual, built by the last block of each row
+    group: equal bit for bit to the plain version that sums the squares in
+    the kernel's order, to the rows pass on the same residual, and within
+    one bf16 step of the former prologue's arithmetic (``_rms``)."""
+    N, K, _, _ = FULL["down"]
+    group = FULL_GROUP[bits]
+    _, lnw, w, scale, out = _case(cuda, B, N, K, ds.GEMV_NONE, bits, group,
+                                  seed=B)
+    gen = torch.Generator().manual_seed(B)
+    a = torch.randn((B, K), generator=gen).bfloat16().to(cuda)
+    lnw = (1 + 0.1 * torch.randn((N,), generator=gen)).to(cuda)
+    x = out.clone()
+    before = ds.decode_step.gemv_rows_launches
+    got = ds.decode_step.gemv_on_rows(a, w, scale, group, x, "norm", lnw)
+    torch.cuda.synchronize()
+    assert ds.decode_step.gemv_rows_launches == before + 1
+    added = ds.decode_step.gemv_on_rows(a, w, scale, group, out.clone(),
+                                        "add")
+    assert torch.equal(x, added)
+    assert torch.equal(got, ds.gemv_rows_plain(x, lnw, ds.GEMV_RMS))
+    assert torch.equal(got, ds.decode_step.rows(x, lnw, ds.GEMV_RMS))
+    assert int(_ulps(got, ds._rms(x, lnw, 1e-6).bfloat16()).max()) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epilogue", ["norm", "silu"])
+@pytest.mark.parametrize("bits", TIERS)
+def test_prepared_rows_do_not_depend_on_the_batch(cuda, bits, epilogue):
+    """Rows built by a 128-row launch (four row groups, four finishers)
+    equal the same rows built alone and among 64, bit for bit."""
+    N, K, group = RAGGED[bits]
+    N = 2 * N if epilogue == "silu" else N
+    _, lnw, w, scale, out = _case(cuda, 128, N, K, ds.GEMV_NONE, bits, group)
+    gen = torch.Generator().manual_seed(7)
+    a = torch.randn((128, K), generator=gen).bfloat16().to(cuda)
+    lnw = (1 + 0.1 * torch.randn((N,), generator=gen)).to(cuda)
+
+    def run(sl):
+        o = None if epilogue == "silu" else out[sl].clone()
+        return ds.decode_step.gemv_on_rows(a[sl].contiguous(), w, scale,
+                                           group, o, epilogue, lnw)
+
+    r128 = run(slice(0, 128))
+    for sl in (slice(0, 1), slice(63, 64), slice(127, 128), slice(17, 81),
+               slice(64, 128)):
+        assert torch.equal(run(sl), r128[sl])
+
+
+@pytest.mark.gpu
+def test_one_gemv_entry_counts_its_own_rows(cuda):
+    """Every call of the one-gemv entry builds its own rows (a rows pass
+    for the rms and silu prologues, f32 rounded as loaded for none)."""
+    N, K, group = RAGGED[0]
+    step = ds.decode_step
+    before = (step.gemv_rebuilt, step.gemv_prepared, step.gemv_launches)
+    for mode in MODES.values():
+        x, lnw, w, scale, out = _case(cuda, 5, N, K, mode, 0, group)
+        ds.gemv(x, lnw, w, scale, group, out, mode, False)
+    torch.cuda.synchronize()
+    assert (step.gemv_rebuilt, step.gemv_prepared, step.gemv_launches) == (
+        before[0] + 3, before[1], before[2] + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("bits", TIERS)
+def test_prepared_rms_rows_of_rows_wider_than_a_lane_holds(cuda, bits, B):
+    """Rows wider than the finisher keeps in registers (K > 768) take its
+    second path, reading the row twice: the same rows, bit for bit, as the
+    plain version and the rows pass."""
+    N, K, group = 1032, 256, {0: 0, 8: 256, 4: 128}[bits]
+    _, _, w, scale, out = _case(cuda, B, N, K, ds.GEMV_NONE, bits, group,
+                                seed=B)
+    gen = torch.Generator().manual_seed(B)
+    a = torch.randn((B, K), generator=gen).bfloat16().to(cuda)
+    lnw = (1 + 0.1 * torch.randn((N,), generator=gen)).to(cuda)
+    got = ds.decode_step.gemv_on_rows(a, w, scale, group, out, "norm", lnw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ds.gemv_rows_plain(out, lnw, ds.GEMV_RMS))
+    assert torch.equal(got, ds.decode_step.rows(out, lnw, ds.GEMV_RMS))

@@ -767,3 +767,70 @@ def test_tp_step_matches_its_plain_version(cuda, kv_bits):
     hw = llama.rms_norm(want[0], params["norm"], cfg.rms_norm_eps)
     assert torch.isfinite(hg).all()
     torch.testing.assert_close(hg, hw, atol=HIDDEN_ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits,kvbits,per_slot,name",
+                         [t for t in TIERS_ALL
+                          if t[3] in ("k2k3", "k2k6k4", "k2k5")],
+                         ids=lambda t: t if isinstance(t, str) else None)
+def test_step_tickets_are_zero_after_a_step_and_replays(cuda, wbits, kvbits,
+                                                        per_slot, name):
+    """The gemvs that finish rows (wo, down) take the attention pair's
+    tickets, one a row group, and leave them zero: after an eager step of
+    three row groups and after 8 replays of the same step captured into a
+    CUDA graph with tickets of its own, each replay equal to the eager
+    step bit for bit."""
+    cfg = QUANT_GEOMETRIES["pairs"]
+    B, H = 72, cfg.num_attention_heads
+    _, packed, kc, vc, emb, cur_arg, cur, lo = _tier_inputs(
+        cfg, B, 64, cuda, wbits, kvbits, per_slot)
+    pos = cur - lo
+    x = k1.decode_step(packed, emb, kc.clone(), vc.clone(), cur_arg, lo,
+                       pos, cfg)
+    torch.cuda.synchronize()
+    assert not k1.decode_step.tickets(torch.cuda.current_stream(cuda),
+                                      1).any()
+    tickets = torch.zeros(B * H, dtype=torch.int32, device=cuda)
+    kg, vg = kc.clone(), vc.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xg = k1.decode_step(packed, emb, kg, vg, cur_arg, lo, pos, cfg,
+                            tickets)
+    for _ in range(8):
+        kg.copy_(kc)
+        vg.copy_(vc)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not tickets.any()
+        assert torch.equal(xg, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits", [0, 8, 4])
+def test_step_gemvs_read_prepared_rows(cuda, wbits):
+    """A step counts its 4 L gemvs as reading rows another kernel prepared
+    and none as building its own; a replay of a captured step counts the
+    same."""
+    cfg = QUANT_GEOMETRIES["pairs"]
+    L = cfg.num_hidden_layers
+    _, packed, kc, vc, emb, cur_arg, cur, lo = _tier_inputs(
+        cfg, 16, 64, cuda, wbits, 8, True)
+    step = k1.decode_step
+    before = (step.gemv_prepared, step.gemv_rebuilt)
+    k1.decode_step(packed, emb, kc, vc, cur_arg, lo, cur - lo, cfg)
+    torch.cuda.synchronize()
+    assert (step.gemv_prepared, step.gemv_rebuilt) == (before[0] + 4 * L,
+                                                       before[1])
+    graph = torch.cuda.CUDAGraph()
+    tickets = torch.zeros(16 * cfg.num_attention_heads, dtype=torch.int32,
+                          device=cuda)
+    with torch.cuda.graph(graph):
+        k1.decode_step(packed, emb, kc, vc, cur_arg, lo, cur - lo, cfg,
+                       tickets)
+    assert step.gemv_prepared == before[0] + 4 * L
+    graph.replay()
+    step.replayed(k1.variant_of(kc, cur_arg, packed, cfg))
+    torch.cuda.synchronize()
+    assert (step.gemv_prepared, step.gemv_rebuilt) == (before[0] + 8 * L,
+                                                       before[1])
